@@ -1,0 +1,22 @@
+"""curl_tpu_torch: the PyTorch/CUDA port of curl_tpu's neural color-curve
+image enhancement, for NVIDIA Hopper GPUs.
+
+Entry points run on the GPU unless the caller passes `device="cpu"`. The
+per-pixel tri-space apply is a hand-written CUDA kernel
+(`csrc/trispace_kernel.cu`, built with nvcc at first launch) with a plain
+torch version beside it, which CPU tensors take.
+"""
+
+from curl_tpu_torch.device import resolve_device
+from curl_tpu_torch.infer.engine import Enhancer
+from curl_tpu_torch.models.trispace import TriSpacePolyNet
+from curl_tpu_torch.ops.enhance import generate_image, trispace_enhance, trispace_residual
+
+__all__ = [
+    "Enhancer",
+    "TriSpacePolyNet",
+    "generate_image",
+    "resolve_device",
+    "trispace_enhance",
+    "trispace_residual",
+]

@@ -1,0 +1,275 @@
+"""Inference engine: predict on low resolution, apply on full resolution.
+
+The backbone sees a small (e.g. 320x320) view to predict the 1134
+coefficients, and the polynomial transform is applied at the target's own
+resolution. The transform has a constant size whatever the image size, so
+this scales to any resolution; `tile_rows` streams the apply in row bands
+(with globally normalized coordinates) to bound device memory.
+
+Wire format: images may arrive as uint8 (scaled by 1/255 on the device) and
+leave as uint8 (`out_u8`, floor-quantized on the device), four times fewer
+bytes each way than fp32.
+"""
+
+from __future__ import annotations
+
+import collections
+import os
+import warnings
+from typing import Iterable, Iterator, Optional
+
+import numpy as np
+import torch
+from torch import Tensor
+
+from curl_tpu_torch.device import DeviceLike, resolve_device
+from curl_tpu_torch.models.trispace import TriSpacePolyNet
+from curl_tpu_torch.ops import enhance
+
+# Bytes that a whole-image apply keeps live per target pixel, by impl:
+#   cuda (u8 wire): u8 target 3 + fp32 normalized target 12 + fp32 composite
+#     12 + two fp32 quantization temporaries (out*255, its clip) 24 + u8
+#     output 3 = 54 B.
+#   torch: the NHWC fp32 intermediates of the plain path (input, one color
+#     space, its coordinate-extended copy, polynomial output, sigmoid,
+#     converted back, three residual terms and their sum) ~ 10 x 12-20 B
+#     plus the chunked monomial planes; 256 B is a round upper figure.
+# A whole image may take an eighth of the device's memory: on an 80 GB card
+# the cuda path bands images above 80e9 / 8 / 54 ~ 185 Mpx (an 8K frame is
+# 33 Mpx), the torch path above ~39 Mpx.
+BYTES_PER_PIXEL = {"cuda": 54, "torch": 256}
+_MEMORY_SHARE = 8
+
+
+def default_tile_pixels(device: torch.device, impl: str) -> int:
+    """Per-image pixel bound above which `enhance_image` bands the apply:
+    the device's memory (host memory for the CPU) over `_MEMORY_SHARE` and
+    the impl's bytes per pixel."""
+    if device.type == "cuda":
+        memory = torch.cuda.get_device_properties(device).total_memory
+    else:
+        memory = os.sysconf("SC_PHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+    return memory // (_MEMORY_SHARE * BYTES_PER_PIXEL[impl])
+
+
+def _norm_u8(x: Tensor, scale: bool) -> Tensor:
+    """uint8 wire format -> fp32: images scale by 1/255, masks just cast.
+    Float inputs pass through."""
+    if x.dtype == torch.uint8:
+        x = x.float()
+        return x / 255.0 if scale else x
+    return x
+
+
+def _quantize_u8(out: Tensor) -> Tensor:
+    """Floor quantization to uint8, as the host-side image writer does."""
+    return torch.clamp(out * 255.0, 0.0, 255.0).to(torch.uint8)
+
+
+def auto_tile_rows(height: int, width: int, budget_px: int) -> Optional[int]:
+    """None if a whole-image apply fits `budget_px`, else a row-band height
+    (a multiple of 32, at least 32) of about budget_px/2 pixels."""
+    if height * width <= budget_px:
+        return None
+    rows = max(32, (budget_px // 2 // max(1, width)) // 32 * 32)
+    return min(rows, height)
+
+
+class Enhancer:
+    """Wraps a TriSpacePolyNet for deployment-style inference.
+
+    `device=None` means `cuda` (raising when CUDA is absent); the model is
+    moved there and put in eval mode. `impl` picks the apply path ("cuda":
+    the fused kernel; "torch": the plain path). `auto_tile_pixels=None`
+    derives the banding bound from the device's memory
+    (`default_tile_pixels`).
+    """
+
+    def __init__(
+        self,
+        model: TriSpacePolyNet,
+        device: DeviceLike = None,
+        backbone_size: int = 320,
+        impl: str = "cuda",
+        out_u8: bool = False,
+        auto_tile_pixels: Optional[int] = None,
+    ):
+        enhance._check_impl(impl)
+        self.device = resolve_device(device)
+        self.model = model.to(self.device).eval()
+        self.backbone_size = backbone_size
+        self.impl = impl
+        self.out_u8 = out_u8
+        self.auto_tile_pixels = (
+            default_tile_pixels(self.device, impl)
+            if auto_tile_pixels is None else auto_tile_pixels
+        )
+
+    def _to_device(self, x) -> Tensor:
+        return torch.as_tensor(x).to(self.device, non_blocking=True)
+
+    @torch.inference_mode()
+    def coefficients(self, img_small, mask_small):
+        """(B, s, s, 3), (B, s, s, 1) -> (R, L, H) each (B, 3, N)."""
+        img_small = _norm_u8(self._to_device(img_small), True)
+        mask_small = _norm_u8(self._to_device(mask_small), False)
+        return self.model.generate_coefficients(img_small, mask_small)
+
+    @torch.inference_mode()
+    def residual(self, target, coeffs, tile_rows: Optional[int] = None) -> Tensor:
+        """Apply coefficients at target resolution, optionally in row bands."""
+        target = _norm_u8(self._to_device(target), True)
+        r, l, h = coeffs
+        _, height, width, _ = target.shape
+        kw = dict(degree=self.model.polynomial_order, spatial=self.model.spatial,
+                  impl=self.impl)
+        if tile_rows is None or tile_rows >= height:
+            return enhance.trispace_residual(target, r, l, h, **kw)
+        bands = []
+        for y0 in range(0, height, tile_rows):
+            band = target[:, y0 : y0 + tile_rows].contiguous()
+            bands.append(enhance.trispace_residual(
+                band, r, l, h, tile=(y0, 0, height, width), **kw
+            ))
+        return torch.cat(bands, dim=1)
+
+    def _full(self, img_small, mask_small, target) -> Tensor:
+        """The whole deployment path for one batch: coefficients, the fused
+        apply with composite, and the u8 quantization, all on the device."""
+        r, l, h = self.coefficients(img_small, mask_small)
+        target = _norm_u8(self._to_device(target), True)
+        with torch.inference_mode():
+            out = enhance.trispace_enhance(
+                target, r, l, h,
+                degree=self.model.polynomial_order,
+                spatial=self.model.spatial,
+                impl=self.impl,
+            )
+            return _quantize_u8(out) if self.out_u8 else out
+
+    def enhance_stream(self, batches: Iterable, max_in_flight: int = 6) -> Iterator[Tensor]:
+        """Pipelined batch enhancement: yields outputs in order while at most
+        `max_in_flight` batches are enqueued on the device and unfinished.
+
+        `batches` yields (img_small, mask_small, target) triples. Each batch
+        is enqueued on the current CUDA stream and followed by an event; the
+        oldest batch is yielded once its event has completed, so the host
+        keeps enqueuing while the device works. On the CPU every batch is
+        done when `_full` returns.
+        """
+        if max_in_flight < 1:
+            raise ValueError("max_in_flight must be >= 1")
+        pending: collections.deque = collections.deque()
+        for img_small, mask_small, target in batches:
+            out = self._full(img_small, mask_small, target)
+            event = None
+            if self.device.type == "cuda":
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(self.device))
+            pending.append((out, event))
+            while len(pending) >= max_in_flight:
+                yield self._finish(*pending.popleft())
+        while pending:
+            yield self._finish(*pending.popleft())
+
+    @staticmethod
+    def _finish(out: Tensor, event) -> Tensor:
+        if event is not None:
+            event.synchronize()
+        return out
+
+    def needs_banding(self, height: int, width: int) -> Optional[int]:
+        """The row-band height to stream a (height, width) image in, or None
+        when a whole-image apply fits `auto_tile_pixels`."""
+        rows = auto_tile_rows(height, width, self.auto_tile_pixels)
+        if rows is not None and rows >= height:
+            # Short and extremely wide: over the budget, but row bands
+            # cannot shrink it (the kernel bands full-width rows only).
+            warnings.warn(
+                f"image {height}x{width} exceeds the per-image pixel budget "
+                f"({self.auto_tile_pixels}) but is too short to row-band; "
+                "applying it whole",
+                RuntimeWarning,
+                stacklevel=3,
+            )
+            return None
+        if rows is not None and rows * width > self.auto_tile_pixels:
+            warnings.warn(
+                f"minimum 32-row band of width {width} exceeds the per-image "
+                f"pixel budget ({self.auto_tile_pixels}); banding at the floor",
+                RuntimeWarning,
+                stacklevel=3,
+            )
+        return rows
+
+    def enhance_image(
+        self,
+        img_small,
+        mask_small,
+        target,
+        target_mask=None,
+        tile_rows: Optional[int] = None,
+        white_background: bool = False,
+    ) -> Tensor:
+        """Full deployment path: coefficients from the small view, residual
+        at target resolution, clamped composite; optionally a white matte
+        where `target_mask` is 0.
+
+        `tile_rows=None` picks whole-image apply when the image fits
+        `auto_tile_pixels`, row bands otherwise; an explicit value forces a
+        band height.
+        """
+        if tile_rows is None:
+            tile_rows = self.needs_banding(target.shape[1], target.shape[2])
+        if tile_rows is None:
+            out = self._full(img_small, mask_small, target)
+        else:
+            target = _norm_u8(self._to_device(target), True)
+            coeffs = self.coefficients(img_small, mask_small)
+            with torch.inference_mode():
+                residual = self.residual(target, coeffs, tile_rows=tile_rows)
+                out = enhance.generate_image(target, residual)
+                if self.out_u8:
+                    out = _quantize_u8(out)
+        if white_background and target_mask is not None:
+            m = self._to_device(target_mask)
+            with torch.inference_mode():
+                if out.dtype == torch.uint8:
+                    m = m.float()
+                    out = (out * m + (1.0 - m) * 255.0).to(torch.uint8)
+                else:
+                    m = m.to(out.dtype)
+                    out = out * m + (1.0 - m)
+        return out
+
+
+def resize_shorter_side(img: np.ndarray, size: int) -> np.ndarray:
+    """PIL bilinear resize of the shorter side to `size`, keeping the aspect
+    ratio. uint8 in -> uint8 out; float in -> float32 [0,1] out."""
+    from PIL import Image
+
+    h, w = img.shape[:2]
+    if h <= w:
+        nh, nw = size, max(1, round(w * size / h))
+    else:
+        nh, nw = max(1, round(h * size / w)), size
+    was_u8 = img.dtype == np.uint8
+    arr = img if was_u8 else np.clip(img * 255.0, 0, 255).astype(np.uint8)
+    mode = "L" if arr.ndim == 2 else None
+    out = Image.fromarray(arr.squeeze() if arr.ndim == 3 and arr.shape[2] == 1 else arr, mode)
+    out = out.resize((nw, nh), Image.BILINEAR)
+    res = np.asarray(out) if was_u8 else np.asarray(out, np.float32) / 255.0
+    if img.ndim == 3 and res.ndim == 2:
+        res = res[..., None]
+    return res
+
+
+def center_crop(img: np.ndarray, size: int) -> np.ndarray:
+    """Center `size` x `size` crop, zero-padded where the image is smaller."""
+    h, w = img.shape[:2]
+    top, left = max(0, (h - size) // 2), max(0, (w - size) // 2)
+    out = img[top : top + size, left : left + size]
+    if out.shape[0] < size or out.shape[1] < size:
+        pads = ((0, size - out.shape[0]), (0, size - out.shape[1])) + ((0, 0),) * (img.ndim - 2)
+        out = np.pad(out, pads)
+    return out

@@ -1,0 +1,234 @@
+"""Fused tri-space polynomial residual: the CUDA kernel K1 and its plain
+torch version.
+
+`fused_trispace_residual` launches `csrc/trispace_kernel.cu` for a CUDA
+tensor, and takes the plain version, `fused_trispace_residual_reference`, for
+a tensor on the CPU. A CUDA tensor never falls back: the kernel builds and
+launches, or the call raises. The backward pass runs autograd through the
+plain version, as the JAX package runs its kernel's backward through XLA.
+
+`LAUNCHES` counts kernel launches (plain-version calls are not counted), so
+a run can show that its main path went through the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import Tensor
+
+from curl_tpu_torch.ops import color_planes as cp
+from curl_tpu_torch.ops import coords, poly
+from curl_tpu_torch.ops.kernels import build
+
+LAUNCHES = 0
+
+_SOURCE = "trispace_kernel"
+# The kernel carries the chain tables of degree 4 only.
+_KERNEL_DEGREE = 4
+_MAX_BATCH = 65535  # grid.y
+_INT32_MAX = 2**31 - 1
+
+
+def _resolve_tile(img: Tensor, row0, static_tile, tile):
+    _, h, w, _ = img.shape
+    if tile is not None:
+        row0, col0, th, tw = tile
+    elif static_tile is not None:
+        col0, th, tw = static_tile
+        row0 = 0 if row0 is None else row0
+    else:
+        row0, col0, th, tw = 0, 0, h, w
+    return int(row0), int(col0), int(th), int(tw)
+
+
+def fused_trispace_residual_reference(
+    img: Tensor,
+    coeff_rgb: Tensor,
+    coeff_lab: Tensor,
+    coeff_hsv: Tensor,
+    row0: int = 0,
+    *,
+    degree: int = 4,
+    spatial: bool = True,
+    total_h: Optional[int] = None,
+    total_w: Optional[int] = None,
+    composite: bool = False,
+) -> Tensor:
+    """The kernel's function in plain torch: fp32 math on the planes of
+    `ops.color_planes`, the chained polynomial of `ops.poly`, the coordinate
+    planes of `ops.coords`; the result in img's dtype."""
+    b, h, w, _ = img.shape
+    x = img.float()
+    rgb = (x[..., 0], x[..., 1], x[..., 2])
+    if spatial:
+        xy = coords.coord_channels(
+            b, h, w, torch.float32, img.device,
+            row_offset=row0,
+            total_height=h if total_h is None else total_h,
+            total_width=w if total_w is None else total_w,
+        )
+        extra = (xy[..., 0], xy[..., 1])
+    else:
+        extra = ()
+    res = [torch.zeros_like(rgb[0]) for _ in range(3)]
+    for space, cf in enumerate((coeff_rgb, coeff_lab, coeff_hsv)):
+        if space == 0:
+            planes = rgb
+        elif space == 1:
+            planes = cp.lab_from_rgb(*rgb)
+        else:
+            planes = cp.hsv_from_rgb(*rgb)
+        out = torch.sigmoid(
+            poly.poly_apply(
+                torch.stack(planes + extra, dim=-1), cf.float(), degree=degree
+            )
+        )
+        o = (out[..., 0], out[..., 1], out[..., 2])
+        if space == 1:
+            o = cp.rgb_from_lab(*o)
+        elif space == 2:
+            o = cp.rgb_from_hsv(*o)
+        res = [r + 2.0 * (oc - 0.5) for r, oc in zip(res, o)]
+    if composite:
+        res = [torch.clamp(p + r, 0.0, 1.0) for p, r in zip(rgb, res)]
+    return torch.stack(res, dim=-1).to(img.dtype)
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    """K1's library with its C signatures declared; built on first call."""
+    lib = build.load(_SOURCE)
+    lib.curl_trispace_residual.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # img, coef, out
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,  # batch, height, width
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # row0, total_h, total_w
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # spatial, composite, bf16
+        ctypes.c_void_p,  # stream
+    ]
+    lib.curl_trispace_residual.restype = ctypes.c_int
+    lib.curl_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.curl_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _launch(
+    img: Tensor,
+    coeff_rgb: Tensor,
+    coeff_lab: Tensor,
+    coeff_hsv: Tensor,
+    row0: int,
+    spatial: bool,
+    total_h: int,
+    total_w: int,
+    composite: bool,
+) -> Tensor:
+    global LAUNCHES
+    if img.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"img must be float32 or bfloat16; got {img.dtype}")
+    if img.dim() != 4 or img.shape[-1] != 3:
+        raise ValueError(f"img must be (B, H, W, 3); got {tuple(img.shape)}")
+    if not img.is_contiguous():
+        raise ValueError("img must be contiguous (NHWC)")
+    for c in (coeff_rgb, coeff_lab, coeff_hsv):
+        if c.device != img.device:
+            raise ValueError(f"coefficients on {c.device}, image on {img.device}")
+    b, h, w, _ = img.shape
+    if not 0 < b <= _MAX_BATCH:
+        raise ValueError(f"batch must be in 1..{_MAX_BATCH}; got {b}")
+    if max(w, total_h, total_w, abs(row0) + h) > _INT32_MAX:
+        raise ValueError("image dimensions must fit in int32")
+    # (B, space, N, 4): each monomial's three channel coefficients as one
+    # float4, the 4th lane zero.
+    packed = torch.stack([coeff_rgb, coeff_lab, coeff_hsv], dim=1).float()
+    packed = F.pad(packed.transpose(2, 3), (0, 1)).contiguous()
+    out = torch.empty_like(img)
+    if h * w == 0:
+        return out
+
+    lib = _library()
+    with torch.cuda.device(img.device):
+        stream = torch.cuda.current_stream(img.device).cuda_stream
+        rc = lib.curl_trispace_residual(
+            img.data_ptr(), packed.data_ptr(), out.data_ptr(), b, h, w, row0, total_h,
+            total_w, int(spatial), int(composite), int(img.dtype == torch.bfloat16), stream,
+        )
+    if rc != 0:
+        msg = lib.curl_cuda_error_string(rc).decode()
+        raise RuntimeError(f"trispace kernel launch failed: {msg} ({rc})")
+    LAUNCHES += 1
+    return out
+
+
+class _FusedTrispace(torch.autograd.Function):
+    """Kernel forward; backward by autograd through the plain version."""
+
+    @staticmethod
+    def forward(ctx, img, coeff_rgb, coeff_lab, coeff_hsv, row0, spatial,
+                total_h, total_w, composite):
+        ctx.save_for_backward(img, coeff_rgb, coeff_lab, coeff_hsv)
+        ctx.cfg = (row0, spatial, total_h, total_w, composite)
+        return _launch(img, coeff_rgb, coeff_lab, coeff_hsv, row0, spatial,
+                       total_h, total_w, composite)
+
+    @staticmethod
+    def backward(ctx, grad):
+        row0, spatial, total_h, total_w, composite = ctx.cfg
+        inputs = [t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad[:4])]
+        wanted = [t for t in inputs if t.requires_grad]
+        grads = iter(())
+        if wanted:
+            with torch.enable_grad():
+                out = fused_trispace_residual_reference(
+                    *inputs, row0, degree=_KERNEL_DEGREE, spatial=spatial,
+                    total_h=total_h, total_w=total_w, composite=composite,
+                )
+                grads = iter(torch.autograd.grad(out, wanted, grad))
+        return tuple(next(grads) if t.requires_grad else None for t in inputs) + (None,) * 5
+
+
+def fused_trispace_residual(
+    img: Tensor,
+    coeff_rgb: Tensor,
+    coeff_lab: Tensor,
+    coeff_hsv: Tensor,
+    row0=None,
+    *,
+    degree: int = 4,
+    spatial: bool = True,
+    static_tile: Optional[tuple] = None,
+    tile: Optional[tuple] = None,
+    composite: bool = False,
+) -> Tensor:
+    """Fused tri-space residual of (B, H, W, 3) `img` with three (B, 3, N)
+    coefficient stacks; `composite=True` returns clip(img + residual, 0, 1).
+
+    Tiling: `tile` = (row_offset, col_offset, total_h, total_w), or `row0`
+    with `static_tile` = (col_offset, total_h, total_w). Bands must span the
+    full width (col_offset 0). A CUDA tensor launches the kernel (degree 4
+    only); a CPU tensor takes the plain version.
+    """
+    b, h, w, _ = img.shape
+    row0, col0, th, tw = _resolve_tile(img, row0, static_tile, tile)
+    if col0 != 0 or tw != w:
+        raise NotImplementedError("the fused kernel tiles over full-width row bands only")
+    n = poly.num_monomials(degree, 3 + 2 * int(spatial))
+    for name, c in (("rgb", coeff_rgb), ("lab", coeff_lab), ("hsv", coeff_hsv)):
+        if tuple(c.shape) != (b, 3, n):
+            raise ValueError(f"coeff_{name} must be {(b, 3, n)}; got {tuple(c.shape)}")
+    if img.device.type == "cpu":
+        return fused_trispace_residual_reference(
+            img, coeff_rgb, coeff_lab, coeff_hsv, row0, degree=degree,
+            spatial=spatial, total_h=th, total_w=tw, composite=composite,
+        )
+    if img.device.type != "cuda":
+        raise ValueError(f"unsupported device {img.device}")
+    if degree != _KERNEL_DEGREE:
+        raise ValueError(f"the CUDA kernel is built for degree {_KERNEL_DEGREE}; got {degree}")
+    return _FusedTrispace.apply(img, coeff_rgb, coeff_lab, coeff_hsv, row0,
+                                spatial, th, tw, composite)

@@ -1,0 +1,140 @@
+"""The CUDA kernel K1 against its plain torch version on the card.
+
+Needs an NVIDIA GPU and nvcc; elsewhere every test skips. These tests import
+neither jax nor the JAX package, so they run on a machine that has neither:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+
+(`--noconftest`: tests/conftest.py configures jax). fp32 tolerance 2e-4:
+torch and the kernel take `pow`/`exp` and FMA contraction in different
+places, and the Lab matrix amplifies `pow` differences ~x500
+(docs/PARITY.md). bf16: the 99.9th percentile within 1e-2, since hue-branch
+flips under bf16 rounding make isolated pixels large.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from curl_tpu_torch.ops import enhance
+from curl_tpu_torch.ops.kernels import trispace_kernel as tk
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA")
+    return torch.device("cuda")
+
+
+def _inputs(seed, b, h, w, n=126, device="cuda", dtype=torch.float32):
+    rng = np.random.default_rng(seed)
+    img = torch.from_numpy(rng.uniform(0, 1, (b, h, w, 3)).astype(np.float32))
+    cs = [torch.from_numpy(rng.normal(scale=0.2, size=(b, 3, n)).astype(np.float32))
+          for _ in range(3)]
+    return img.to(device=device, dtype=dtype), [c.to(device) for c in cs]
+
+
+def _plain(img, cs, **kw):
+    row0, _, th, tw = kw.pop("tile", (0, 0, img.shape[1], img.shape[2]))
+    return tk.fused_trispace_residual_reference(img, *cs, row0, total_h=th, total_w=tw, **kw)
+
+
+@pytest.mark.parametrize(
+    "b,h,w,n,kw",
+    [
+        (2, 24, 40, 126, {}),
+        (1, 17, 23, 126, {}),
+        (1, 16, 16, 35, dict(spatial=False)),
+        (2, 24, 40, 126, dict(composite=True)),
+        (1, 32, 48, 126, dict(tile=(16, 0, 64, 48))),
+        (3, 257, 129, 126, dict(composite=True)),
+    ],
+    ids=["base", "odd", "non_spatial", "composite", "band", "ragged_blocks"],
+)
+def test_kernel_matches_plain(cuda, b, h, w, n, kw):
+    img, cs = _inputs(0, b, h, w, n)
+    before = tk.LAUNCHES
+    got = tk.fused_trispace_residual(img, *cs, **kw)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES == before + 1
+    expect = _plain(img, cs, **kw)
+    assert got.shape == img.shape and got.dtype == img.dtype
+    assert float((got - expect).abs().max()) <= 2e-4
+
+
+def test_band_equals_whole_slice(cuda):
+    img, cs = _inputs(1, 1, 64, 48)
+    whole = tk.fused_trispace_residual(img, *cs)
+    band = tk.fused_trispace_residual(img[:, 16:48].contiguous(), *cs, tile=(16, 0, 64, 48))
+    assert torch.equal(band, whole[:, 16:48])
+
+
+def test_bf16_kernel_matches_plain(cuda):
+    img, cs = _inputs(2, 2, 96, 160, dtype=torch.bfloat16)
+    for composite in (False, True):
+        got = tk.fused_trispace_residual(img, *cs, composite=composite)
+        assert got.dtype == torch.bfloat16
+        err = (got.float() - _plain(img, cs, composite=composite).float()).abs()
+        assert float(torch.quantile(err.flatten(), 0.999)) <= 1e-2
+
+
+def test_int64_offsets_past_2_to_31(cuda):
+    """An 8K batch of 22 bf16 images holds more than 2^31 values; the last
+    image must come out as it does alone."""
+    img, cs = _inputs(3, 1, 4320, 7680, dtype=torch.bfloat16)
+    batch = img.expand(22, -1, -1, -1).contiguous()
+    assert batch.numel() > 2**31
+    many = tk.fused_trispace_residual(batch, *[c.expand(22, -1, -1).contiguous() for c in cs])
+    assert torch.equal(many[-1:], tk.fused_trispace_residual(img, *cs))
+
+
+def test_gradients_match_plain_autograd(cuda):
+    img, cs = _inputs(4, 1, 64, 64)
+    img = img.clamp(0.2, 0.8)
+    weight = torch.randn(img.shape, generator=torch.Generator().manual_seed(0)).to(cuda)
+    a = [c.clone().requires_grad_() for c in cs]
+    b = [c.clone().requires_grad_() for c in cs]
+    (tk.fused_trispace_residual(img, *a, composite=True) * weight).sum().backward()
+    (_plain(img, b, composite=True) * weight).sum().backward()
+    for x, y in zip(a, b):
+        assert float(x.grad.abs().max()) > 0
+        torch.testing.assert_close(x.grad, y.grad, rtol=1e-4, atol=1e-4)
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    img, cs = _inputs(5, 1, 8, 8)
+    with pytest.raises(TypeError):
+        tk.fused_trispace_residual(img.half(), *cs)
+    with pytest.raises(ValueError, match="B, H, W, 3"):
+        tk.fused_trispace_residual(torch.zeros(1, 8, 8, 4, device=cuda), *cs)
+    with pytest.raises(ValueError, match="contiguous"):
+        tk.fused_trispace_residual(img.transpose(1, 2), *cs)
+    with pytest.raises(ValueError, match="degree"):
+        tk.fused_trispace_residual(img, *[c[..., :56].contiguous() for c in cs], degree=3)
+
+
+def test_enhance_paths_agree(cuda):
+    img, cs = _inputs(6, 2, 40, 56)
+    fused = enhance.trispace_enhance(img, *cs, impl="cuda")
+    plain = enhance.trispace_enhance(img, *cs, impl="torch")
+    assert float((fused - plain).abs().max()) <= 2e-4
+
+
+def test_enhancer_cuda_matches_cpu(cuda):
+    from curl_tpu_torch.infer.engine import Enhancer
+    from curl_tpu_torch.models.trispace import TriSpacePolyNet
+
+    model = TriSpacePolyNet(backbone="tiny", device="cpu", generator=torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(7)
+    batch = (rng.integers(0, 256, (2, 32, 32, 3)).astype(np.uint8),
+             np.ones((2, 32, 32, 1), np.uint8),
+             rng.integers(0, 256, (2, 40, 56, 3)).astype(np.uint8))
+    cpu = Enhancer(model, device="cpu", backbone_size=32, out_u8=True).enhance_image(*batch)
+    gpu_model = TriSpacePolyNet(backbone="tiny", device=cuda)
+    gpu_model.load_state_dict(model.state_dict())
+    gpu = Enhancer(gpu_model, backbone_size=32, out_u8=True).enhance_image(*batch).cpu()
+    diff = (gpu.int() - cpu.int()).abs()
+    assert int(diff.max()) <= 1 and float((diff == 0).float().mean()) >= 0.999

@@ -1,0 +1,63 @@
+"""Import hygiene of the port: `curl_tpu_torch` and `chip_smoke.py` import
+torch and never jax, flax or the JAX package (only the port's tests import
+both)."""
+
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parents[1]
+PACKAGE = REPO / "curl_tpu_torch"
+
+MODULES = [
+    "curl_tpu_torch",
+    "curl_tpu_torch.device",
+    "curl_tpu_torch.ops",
+    "curl_tpu_torch.ops.color",
+    "curl_tpu_torch.ops.color_planes",
+    "curl_tpu_torch.ops.coords",
+    "curl_tpu_torch.ops.enhance",
+    "curl_tpu_torch.ops.poly",
+    "curl_tpu_torch.ops.kernels",
+    "curl_tpu_torch.ops.kernels.build",
+    "curl_tpu_torch.ops.kernels.trispace_kernel",
+    "curl_tpu_torch.models",
+    "curl_tpu_torch.models.backbone",
+    "curl_tpu_torch.models.trispace",
+    "curl_tpu_torch.export",
+    "curl_tpu_torch.export.torch_convert",
+    "curl_tpu_torch.infer",
+    "curl_tpu_torch.infer.engine",
+]
+
+
+def test_importing_the_port_loads_no_jax():
+    code = (
+        "import importlib, sys\n"
+        f"for name in {MODULES!r}:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(k for k in sys.modules\n"
+        "             if k.split('.')[0] in ('jax', 'jaxlib', 'flax') or k == 'curl_tpu'\n"
+        "             or k.startswith('curl_tpu.'))\n"
+        "print(','.join(bad))\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "", f"modules of the JAX stack loaded: {proc.stdout}"
+
+
+_SOURCES = sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", _SOURCES, ids=lambda p: str(p.relative_to(REPO)))
+def test_source_names_no_jax(path):
+    text = path.read_text()
+    assert not re.search(r"^\s*(import|from)\s+(jax|jaxlib|flax)\b", text, re.M), path
+    assert "import jax" not in text, path
+    assert not re.search(r"\bcurl_tpu\.", text), path
+    assert not re.search(r"^\s*(import|from)\s+curl_tpu\b(?!_torch)", text, re.M), path
