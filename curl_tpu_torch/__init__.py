@@ -2,17 +2,20 @@
 image enhancement, for NVIDIA Hopper GPUs.
 
 Entry points run on the GPU unless the caller passes `device="cpu"`. The
-per-pixel tri-space apply is a hand-written CUDA kernel
-(`csrc/trispace_kernel.cu`, built with nvcc at first launch) with a plain
+per-pixel tri-space apply of `TriSpacePolyNet` and the knot-curve pass of
+`CurlCurveNet` are hand-written CUDA kernels (`csrc/trispace_kernel.cu`,
+`csrc/curve_kernel.cu`, built with nvcc at first launch), each with a plain
 torch version beside it, which CPU tensors take.
 """
 
 from curl_tpu_torch.device import resolve_device
 from curl_tpu_torch.infer.engine import Enhancer
+from curl_tpu_torch.models.curl_curve import CurlCurveNet
 from curl_tpu_torch.models.trispace import TriSpacePolyNet
 from curl_tpu_torch.ops.enhance import generate_image, trispace_enhance, trispace_residual
 
 __all__ = [
+    "CurlCurveNet",
     "Enhancer",
     "TriSpacePolyNet",
     "generate_image",

@@ -1,10 +1,16 @@
 """Weight bridge: the JAX package's flax variables -> this port's state dict.
 
 `state_dict_from_jax` takes `{'params': ..., 'batch_stats': ...}` as nested
-dicts of numpy arrays (flax names: `backbone_net/stage{s}_block{b}/conv_pw`,
-`head/fc{i}`, ...) and returns the torch state dict of `TriSpacePolyNet`
-with timm key names, key for key and value for value what the JAX package's
-`export/torch_convert.py::export_trispace_state_dict` writes.
+dicts of numpy arrays and returns the torch state dict with timm key names:
+
+  * of `TriSpacePolyNet` (flax names `backbone_net/stage{s}_block{b}/conv_pw`,
+    `head/fc{i}`, ...), key for key and value for value what the JAX
+    package's `export/torch_convert.py::export_trispace_state_dict` writes;
+  * of `CurlCurveNet` (flax names `backbone/...` and `classifier`), with the
+    classifier at `backbone.classifier.{weight,bias}`.
+
+The flax subtree name tells the two apart: `backbone_net` for the first,
+`backbone` for the second.
 
 Layout transforms (flax -> torch):
   conv      (kh, kw, I, O) -> (O, I, kh, kw)
@@ -42,9 +48,9 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> dict[str, np.ndarray]
 def state_dict_from_jax(
     variables_np: Mapping[str, Any], backbone_cfg: bb.BackboneCfg
 ) -> dict[str, torch.Tensor]:
-    """flax `{'params', 'batch_stats'}` of a TriSpacePolyNet (numpy leaves)
-    -> the port's `TriSpacePolyNet.state_dict()`; raises KeyError naming the
-    first missing flax entry."""
+    """flax `{'params', 'batch_stats'}` of a TriSpacePolyNet or a
+    CurlCurveNet (numpy leaves) -> that model's `state_dict()` in the port;
+    raises KeyError naming the first missing flax entry."""
     params = _flatten(variables_np["params"])
     stats = _flatten(variables_np.get("batch_stats", {}))
     out: dict[str, torch.Tensor] = {}
@@ -64,7 +70,7 @@ def state_dict_from_jax(
         put(tk + ".running_var", stats[fk + "/var"])
         out[tk + ".num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
 
-    b = "backbone_net"
+    b = "backbone_net" if "backbone_net/stem_conv/kernel" in params else "backbone"
     put_conv(f"{b}/stem_conv", "backbone.conv_stem")
     put_bn(f"{b}/stem_bn", "backbone.bn1")
     for si, stage in enumerate(backbone_cfg.blocks):
@@ -91,6 +97,10 @@ def state_dict_from_jax(
                 put_bn(f + "/bn3", t + ".bn3")
     put_conv(f"{b}/head_conv", "backbone.conv_head")
     put_bn(f"{b}/head_bn", "backbone.bn2")
+    if b == "backbone":
+        put("backbone.classifier.weight", params["classifier/kernel"].transpose(1, 0))
+        put("backbone.classifier.bias", params["classifier/bias"])
+        return out
     i = 0
     while f"head/fc{i}/kernel" in params:
         put(f"backbone.classifier.{i}.weight", params[f"head/fc{i}/kernel"].transpose(1, 0))

@@ -1,10 +1,11 @@
 """Inference engine: predict on low resolution, apply on full resolution.
 
 The backbone sees a small (e.g. 320x320) view to predict the 1134
-coefficients, and the polynomial transform is applied at the target's own
-resolution. The transform has a constant size whatever the image size, so
-this scales to any resolution; `tile_rows` streams the apply in row bands
-(with globally normalized coordinates) to bound device memory.
+coefficients (or, for a CurlCurveNet, the knots of its ten curves), and the
+transform is applied at the target's own resolution. The transform has a
+constant size whatever the image size, so this scales to any resolution;
+`tile_rows` streams the polynomial apply in row bands (with globally
+normalized coordinates) to bound device memory.
 
 Wire format: images may arrive as uint8 (scaled by 1/255 on the device) and
 leave as uint8 (`out_u8`, floor-quantized on the device), four times fewer
@@ -16,13 +17,14 @@ from __future__ import annotations
 import collections
 import os
 import warnings
-from typing import Iterable, Iterator, Optional
+from typing import Iterable, Iterator, Optional, Union
 
 import numpy as np
 import torch
 from torch import Tensor
 
 from curl_tpu_torch.device import DeviceLike, resolve_device
+from curl_tpu_torch.models.curl_curve import CurlCurveNet
 from curl_tpu_torch.models.trispace import TriSpacePolyNet
 from curl_tpu_torch.ops import enhance
 
@@ -76,18 +78,21 @@ def auto_tile_rows(height: int, width: int, budget_px: int) -> Optional[int]:
 
 
 class Enhancer:
-    """Wraps a TriSpacePolyNet for deployment-style inference.
+    """Wraps a TriSpacePolyNet or a CurlCurveNet for deployment-style
+    inference.
 
     `device=None` means `cuda` (raising when CUDA is absent); the model is
-    moved there and put in eval mode. `impl` picks the apply path ("cuda":
-    the fused kernel; "torch": the plain path). `auto_tile_pixels=None`
-    derives the banding bound from the device's memory
-    (`default_tile_pixels`).
+    moved there and put in eval mode. `impl` picks the polynomial model's
+    apply path ("cuda": the fused kernel; "torch": the plain path); a
+    CurlCurveNet follows its own `curve_impl` and applies in one fused pass,
+    so the polynomial helpers (`coefficients`, `residual`, row bands) raise
+    NotImplementedError for it. `auto_tile_pixels=None` derives the banding
+    bound from the device's memory (`default_tile_pixels`).
     """
 
     def __init__(
         self,
-        model: TriSpacePolyNet,
+        model: Union[TriSpacePolyNet, CurlCurveNet],
         device: DeviceLike = None,
         backbone_size: int = 320,
         impl: str = "cuda",
@@ -97,6 +102,7 @@ class Enhancer:
         enhance._check_impl(impl)
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
+        self.is_curve = isinstance(model, CurlCurveNet)
         self.backbone_size = backbone_size
         self.impl = impl
         self.out_u8 = out_u8
@@ -108,16 +114,27 @@ class Enhancer:
     def _to_device(self, x) -> Tensor:
         return torch.as_tensor(x).to(self.device, non_blocking=True)
 
+    def _polynomial_only(self) -> None:
+        if self.is_curve:
+            raise NotImplementedError(
+                "coefficients()/residual()/tile_rows are polynomial-model helpers; "
+                "the curve model applies in one fused pass"
+            )
+
     @torch.inference_mode()
     def coefficients(self, img_small, mask_small):
-        """(B, s, s, 3), (B, s, s, 1) -> (R, L, H) each (B, 3, N)."""
+        """(B, s, s, 3), (B, s, s, 1) -> (R, L, H) each (B, 3, N).
+        Polynomial models only."""
+        self._polynomial_only()
         img_small = _norm_u8(self._to_device(img_small), True)
         mask_small = _norm_u8(self._to_device(mask_small), False)
         return self.model.generate_coefficients(img_small, mask_small)
 
     @torch.inference_mode()
     def residual(self, target, coeffs, tile_rows: Optional[int] = None) -> Tensor:
-        """Apply coefficients at target resolution, optionally in row bands."""
+        """Apply coefficients at target resolution, optionally in row bands.
+        Polynomial models only."""
+        self._polynomial_only()
         target = _norm_u8(self._to_device(target), True)
         r, l, h = coeffs
         _, height, width, _ = target.shape
@@ -134,8 +151,16 @@ class Enhancer:
         return torch.cat(bands, dim=1)
 
     def _full(self, img_small, mask_small, target) -> Tensor:
-        """The whole deployment path for one batch: coefficients, the fused
-        apply with composite, and the u8 quantization, all on the device."""
+        """The whole deployment path for one batch: coefficients (or knots),
+        the fused apply with composite, and the u8 quantization, all on the
+        device."""
+        if self.is_curve:
+            img_small = _norm_u8(self._to_device(img_small), True)
+            mask_small = _norm_u8(self._to_device(mask_small), False)
+            target = _norm_u8(self._to_device(target), True)
+            with torch.inference_mode():
+                out, _ = self.model(img_small, mask_small, target)
+                return _quantize_u8(out) if self.out_u8 else out
         r, l, h = self.coefficients(img_small, mask_small)
         target = _norm_u8(self._to_device(target), True)
         with torch.inference_mode():
@@ -180,7 +205,10 @@ class Enhancer:
 
     def needs_banding(self, height: int, width: int) -> Optional[int]:
         """The row-band height to stream a (height, width) image in, or None
-        when a whole-image apply fits `auto_tile_pixels`."""
+        when a whole-image apply fits `auto_tile_pixels`. Curve models never
+        band: their apply is one fused pass."""
+        if self.is_curve:
+            return None
         rows = auto_tile_rows(height, width, self.auto_tile_pixels)
         if rows is not None and rows >= height:
             # Short and extremely wide: over the budget, but row bands

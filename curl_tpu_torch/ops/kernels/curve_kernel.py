@@ -1,0 +1,170 @@
+"""Fused knot-curve pass: the CUDA kernel K2 and its plain torch version.
+
+`fused_curve_enhance` launches `csrc/curve_kernel.cu` for a CUDA tensor and
+takes the plain version, `fused_curve_enhance_reference`, for a tensor on
+the CPU. A CUDA tensor never falls back: the kernel builds and launches, or
+the call raises. The backward pass runs autograd through the plain version
+for the image, the mask and all three knot stacks, as the JAX package runs
+its kernel's backward through XLA.
+
+`LAUNCHES` counts kernel launches (plain-version calls are not counted), so
+a run can show that its main path went through the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+from torch import Tensor
+
+from curl_tpu_torch.ops import color, curves
+from curl_tpu_torch.ops.kernels import build
+
+LAUNCHES = 0
+
+_SOURCE = "curve_kernel"
+_MAX_BATCH = 65535  # grid.y
+# The kernel stages at most this many segments per curve in shared memory.
+MAX_KNOTS = 65
+# Curves per space, in the kernel's order: Lab, RGB, HSV.
+_CURVES = (3, 3, 4)
+
+
+def prepare_knots(knots_lab: Tensor, knots_rgb: Tensor, knots_hsv: Tensor) -> tuple[Tensor, Tensor]:
+    """Exponentiated knot stacks (B,3,K_lab), (B,3,K_rgb), (B,4,K_hsv) ->
+    slopes (B, 10, S), zero-padded to the longest curve's S = K-1 segments,
+    and c0 (B, 10, 1): the ten curves in application order."""
+    groups = [k[:, i] for k in (knots_lab, knots_rgb, knots_hsv) for i in range(k.shape[1])]
+    max_seg = max(g.shape[-1] - 1 for g in groups)
+    slopes = [
+        torch.nn.functional.pad(g[:, 1:] - g[:, :-1], (0, max_seg - (g.shape[-1] - 1)))
+        for g in groups
+    ]
+    c0 = torch.stack([g[:, 0] for g in groups], dim=1)[..., None]
+    return torch.stack(slopes, dim=1), c0
+
+
+def fused_curve_enhance_reference(
+    img: Tensor, mask: Tensor, knots_lab: Tensor, knots_rgb: Tensor, knots_hsv: Tensor
+) -> Tensor:
+    """The kernel's function in plain torch on the NHWC conversions of
+    `ops.color` and the paper-mode curves of `ops.curves`: fp32 math (fp64
+    for a float64 image, which serves as a high-precision yardstick); the
+    result in img's dtype."""
+    x = img if img.dtype == torch.float64 else img.float()
+    m = mask.to(x.dtype)
+
+    def apply_set(planes: Tensor, knots: Tensor, wiring) -> Tensor:
+        for i, (drive, out) in enumerate(wiring):
+            planes, _ = curves.apply_curve(planes, knots[:, i].to(x.dtype), drive, out)
+        return planes
+
+    lab = apply_set(color.rgb_to_lab(x), knots_lab, curves.LAB_WIRING) * m
+    rgb = apply_set(color.lab_to_rgb(lab), knots_rgb, curves.RGB_WIRING) * m
+    hsv = apply_set(color.rgb_to_hsv(rgb), knots_hsv, curves.HSV_WIRING) * m
+    residual = color.hsv_to_rgb(hsv)
+    return (torch.clamp(x + residual, 0.0, 1.0) * m).to(img.dtype)
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    """K2's library with its C signatures declared; built on first call."""
+    lib = build.load(_SOURCE)
+    lib.curl_curve_enhance.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p,  # img, mask
+        ctypes.c_void_p, ctypes.c_void_p,  # slopes, c0
+        ctypes.c_void_p,  # out
+        ctypes.c_longlong, ctypes.c_longlong,  # batch, pixels per image
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # k_lab, k_rgb, k_hsv
+        ctypes.c_int,  # bf16
+        ctypes.c_void_p,  # stream
+    ]
+    lib.curl_curve_enhance.restype = ctypes.c_int
+    lib.curl_curve_error_string.argtypes = [ctypes.c_int]
+    lib.curl_curve_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _launch(img: Tensor, mask: Tensor, knots_lab: Tensor, knots_rgb: Tensor,
+            knots_hsv: Tensor) -> Tensor:
+    global LAUNCHES
+    if img.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"img must be float32 or bfloat16; got {img.dtype}")
+    if mask.dtype != img.dtype:
+        raise TypeError(f"mask must be in img's dtype {img.dtype}; got {mask.dtype}")
+    if not (img.is_contiguous() and mask.is_contiguous()):
+        raise ValueError("img and mask must be contiguous (NHWC)")
+    for k in (mask, knots_lab, knots_rgb, knots_hsv):
+        if k.device != img.device:
+            raise ValueError(f"inputs on {k.device}, image on {img.device}")
+    b, h, w, _ = img.shape
+    if not 0 < b <= _MAX_BATCH:
+        raise ValueError(f"batch must be in 1..{_MAX_BATCH}; got {b}")
+    slopes, c0 = prepare_knots(knots_lab.float(), knots_rgb.float(), knots_hsv.float())
+    slopes, c0 = slopes.contiguous(), c0.contiguous()
+    out = torch.empty_like(img)
+    if h * w == 0:
+        return out
+
+    lib = _library()
+    with torch.cuda.device(img.device):
+        stream = torch.cuda.current_stream(img.device).cuda_stream
+        rc = lib.curl_curve_enhance(
+            img.data_ptr(), mask.data_ptr(), slopes.data_ptr(), c0.data_ptr(), out.data_ptr(),
+            b, h * w, knots_lab.shape[-1], knots_rgb.shape[-1], knots_hsv.shape[-1],
+            int(img.dtype == torch.bfloat16), stream,
+        )
+    if rc != 0:
+        msg = lib.curl_curve_error_string(rc).decode()
+        raise RuntimeError(f"curve kernel launch failed: {msg} ({rc})")
+    LAUNCHES += 1
+    return out
+
+
+class _FusedCurve(torch.autograd.Function):
+    """Kernel forward; backward by autograd through the plain version."""
+
+    @staticmethod
+    def forward(ctx, img, mask, knots_lab, knots_rgb, knots_hsv):
+        ctx.save_for_backward(img, mask, knots_lab, knots_rgb, knots_hsv)
+        return _launch(img, mask, knots_lab, knots_rgb, knots_hsv)
+
+    @staticmethod
+    def backward(ctx, grad):
+        inputs = [t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        wanted = [t for t in inputs if t.requires_grad]
+        grads = iter(())
+        if wanted:
+            with torch.enable_grad():
+                out = fused_curve_enhance_reference(*inputs)
+                grads = iter(torch.autograd.grad(out, wanted, grad))
+        return tuple(next(grads) if t.requires_grad else None for t in inputs)
+
+
+def fused_curve_enhance(
+    img: Tensor, mask: Tensor, knots_lab: Tensor, knots_rgb: Tensor, knots_hsv: Tensor
+) -> Tensor:
+    """Paper-mode knot-curve enhancement of (B, H, W, 3) `img` under the
+    (B, H, W, 1) `mask`, with exponentiated knot stacks (B, 3, K_lab),
+    (B, 3, K_rgb) and (B, 4, K_hsv), each K in 2..MAX_KNOTS. Returns
+    clip(img + residual, 0, 1) * mask in img's dtype. A CUDA tensor launches
+    the kernel; a CPU tensor takes the plain version."""
+    if img.dim() != 4 or img.shape[-1] != 3:
+        raise ValueError(f"img must be (B, H, W, 3); got {tuple(img.shape)}")
+    b, h, w, _ = img.shape
+    if tuple(mask.shape) != (b, h, w, 1):
+        raise ValueError(f"mask must be {(b, h, w, 1)}; got {tuple(mask.shape)}")
+    for name, k, n in zip(("lab", "rgb", "hsv"), (knots_lab, knots_rgb, knots_hsv), _CURVES):
+        if k.dim() != 3 or tuple(k.shape[:2]) != (b, n) or not 2 <= k.shape[-1] <= MAX_KNOTS:
+            raise ValueError(
+                f"knots_{name} must be ({b}, {n}, K) with K in 2..{MAX_KNOTS}; "
+                f"got {tuple(k.shape)}"
+            )
+    if img.device.type == "cpu":
+        return fused_curve_enhance_reference(img, mask, knots_lab, knots_rgb, knots_hsv)
+    if img.device.type != "cuda":
+        raise ValueError(f"unsupported device {img.device}")
+    return _FusedCurve.apply(img, mask, knots_lab, knots_rgb, knots_hsv)

@@ -1,4 +1,5 @@
-"""The CUDA kernel K1 against its plain torch version on the card.
+"""The CUDA kernels K1 (tri-space residual) and K2 (knot curves) against
+their plain torch versions on the card.
 
 Needs an NVIDIA GPU and nvcc; elsewhere every test skips. These tests import
 neither jax nor the JAX package, so they run on a machine that has neither:
@@ -9,7 +10,9 @@ neither jax nor the JAX package, so they run on a machine that has neither:
 torch and the kernel take `pow`/`exp` and FMA contraction in different
 places, and the Lab matrix amplifies `pow` differences ~x500
 (docs/PARITY.md). bf16: the 99.9th percentile within 1e-2, since hue-branch
-flips under bf16 rounding make isolated pixels large.
+flips under bf16 rounding make isolated pixels large. K2 at knot logits of
+std 0.05 holds the same 2e-4 max; its ten sequential curves can flip a clip
+or hue branch at larger knots, which the 99.9th percentile bounds.
 """
 
 import numpy as np
@@ -17,6 +20,7 @@ import pytest
 import torch
 
 from curl_tpu_torch.ops import enhance
+from curl_tpu_torch.ops.kernels import curve_kernel as ck
 from curl_tpu_torch.ops.kernels import trispace_kernel as tk
 
 pytestmark = pytest.mark.cuda
@@ -137,4 +141,109 @@ def test_enhancer_cuda_matches_cpu(cuda):
     gpu_model.load_state_dict(model.state_dict())
     gpu = Enhancer(gpu_model, backbone_size=32, out_u8=True).enhance_image(*batch).cpu()
     diff = (gpu.int() - cpu.int()).abs()
+    assert int(diff.max()) <= 1 and float((diff == 0).float().mean()) >= 0.999
+
+
+def _curve_inputs(seed, b, h, w, counts=(16, 16, 16), std=0.05, dtype=torch.float32):
+    """Image, 90%-ones mask and exponentiated knot stacks on the card."""
+    rng = np.random.default_rng(seed)
+    img = torch.from_numpy(rng.uniform(0, 1, (b, h, w, 3)).astype(np.float32))
+    mask = torch.from_numpy((rng.uniform(size=(b, h, w, 1)) < 0.9).astype(np.float32))
+    knots = [torch.from_numpy(np.exp(rng.normal(scale=std, size=(b, n, k))).astype(np.float32))
+             for n, k in zip((3, 3, 4), counts)]
+    return (img.to("cuda", dtype), mask.to("cuda", dtype), *[k.to("cuda") for k in knots])
+
+
+@pytest.mark.parametrize(
+    "b,h,w,counts",
+    [
+        (2, 24, 40, (16, 16, 16)),
+        (1, 17, 23, (16, 16, 16)),
+        (3, 257, 129, (16, 16, 16)),
+        (2, 24, 40, (8, 12, 20)),
+        (1, 33, 31, (2, 65, 5)),
+    ],
+    ids=["base", "odd", "ragged_blocks", "other_counts", "extreme_counts"],
+)
+def test_curve_kernel_matches_plain(cuda, b, h, w, counts):
+    args = _curve_inputs(10, b, h, w, counts)
+    before = ck.LAUNCHES
+    got = ck.fused_curve_enhance(*args)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES == before + 1
+    expect = ck.fused_curve_enhance_reference(*args)
+    assert got.shape == args[0].shape and got.dtype == torch.float32
+    assert float((got - expect).abs().max()) <= 2e-4
+
+
+def test_curve_kernel_large_knots_quantile(cuda):
+    args = _curve_inputs(11, 2, 96, 160, std=0.2)
+    err = (ck.fused_curve_enhance(*args) - ck.fused_curve_enhance_reference(*args)).abs()
+    assert float(torch.quantile(err.flatten(), 0.999)) <= 1e-3
+
+
+def test_curve_kernel_bf16_matches_plain(cuda):
+    args = _curve_inputs(12, 2, 96, 160, dtype=torch.bfloat16)
+    got = ck.fused_curve_enhance(*args)
+    assert got.dtype == torch.bfloat16
+    err = (got.float() - ck.fused_curve_enhance_reference(*args).float()).abs()
+    assert float(torch.quantile(err.flatten(), 0.999)) <= 1e-2
+
+
+def test_curve_kernel_int64_offsets_past_2_to_31(cuda):
+    """An 8K batch of 22 bf16 images holds more than 2^31 values; the last
+    image must come out as it does alone."""
+    img, mask, *knots = _curve_inputs(13, 1, 4320, 7680, dtype=torch.bfloat16)
+    n = 22
+    many = ck.fused_curve_enhance(
+        img.expand(n, -1, -1, -1).contiguous(), mask.expand(n, -1, -1, -1).contiguous(),
+        *[k.expand(n, -1, -1).contiguous() for k in knots],
+    )
+    assert many.numel() > 2**31
+    assert torch.equal(many[-1:], ck.fused_curve_enhance(img, mask, *knots))
+
+
+def test_curve_gradients_match_plain_autograd(cuda):
+    args = list(_curve_inputs(14, 1, 64, 64))
+    args[0] = args[0].clamp(0.2, 0.8)
+    weight = torch.randn(args[0].shape, generator=torch.Generator().manual_seed(0)).to(cuda)
+    a = [t.clone().requires_grad_() for t in args]
+    b = [t.clone().requires_grad_() for t in args]
+    (ck.fused_curve_enhance(*a) * weight).sum().backward()
+    (ck.fused_curve_enhance_reference(*b) * weight).sum().backward()
+    for x, y in zip(a, b):
+        assert float(x.grad.abs().max()) > 0
+        torch.testing.assert_close(x.grad, y.grad, rtol=1e-4, atol=1e-4)
+
+
+def test_curve_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    img, mask, *knots = _curve_inputs(15, 1, 8, 8)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ck.fused_curve_enhance(img.half(), mask.half(), *knots)
+    with pytest.raises(TypeError, match="mask must be"):
+        ck.fused_curve_enhance(img, mask.bfloat16(), *knots)
+    with pytest.raises(ValueError, match="contiguous"):
+        ck.fused_curve_enhance(img.transpose(1, 2), mask, *knots)
+    with pytest.raises(ValueError, match="image on"):
+        ck.fused_curve_enhance(img, mask, knots[0].cpu(), *knots[1:])
+    with pytest.raises(ValueError, match="knots_hsv"):
+        ck.fused_curve_enhance(img, mask, *knots[:2], knots[2][:, :3].contiguous())
+
+
+def test_curve_enhancer_cuda_matches_cpu(cuda):
+    from curl_tpu_torch.infer.engine import Enhancer
+    from curl_tpu_torch.models.curl_curve import CurlCurveNet
+
+    model = CurlCurveNet(backbone="tiny", device="cpu", generator=torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(16)
+    batch = (rng.integers(0, 256, (2, 32, 32, 3)).astype(np.uint8),
+             np.ones((2, 32, 32, 1), np.uint8),
+             rng.integers(0, 256, (2, 40, 56, 3)).astype(np.uint8))
+    cpu = Enhancer(model, device="cpu", backbone_size=32, out_u8=True).enhance_image(*batch)
+    gpu_model = CurlCurveNet(backbone="tiny", device=cuda)
+    gpu_model.load_state_dict(model.state_dict())
+    before = ck.LAUNCHES
+    gpu = Enhancer(gpu_model, backbone_size=32, out_u8=True).enhance_image(*batch)
+    assert ck.LAUNCHES == before + 1 and gpu.device.type == "cuda"
+    diff = (gpu.cpu().int() - cpu.int()).abs()
     assert int(diff.max()) <= 1 and float((diff == 0).float().mean()) >= 0.999

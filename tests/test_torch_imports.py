@@ -19,13 +19,16 @@ MODULES = [
     "curl_tpu_torch.ops.color",
     "curl_tpu_torch.ops.color_planes",
     "curl_tpu_torch.ops.coords",
+    "curl_tpu_torch.ops.curves",
     "curl_tpu_torch.ops.enhance",
     "curl_tpu_torch.ops.poly",
     "curl_tpu_torch.ops.kernels",
     "curl_tpu_torch.ops.kernels.build",
+    "curl_tpu_torch.ops.kernels.curve_kernel",
     "curl_tpu_torch.ops.kernels.trispace_kernel",
     "curl_tpu_torch.models",
     "curl_tpu_torch.models.backbone",
+    "curl_tpu_torch.models.curl_curve",
     "curl_tpu_torch.models.trispace",
     "curl_tpu_torch.export",
     "curl_tpu_torch.export.torch_convert",
