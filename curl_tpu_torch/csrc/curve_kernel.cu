@@ -8,35 +8,43 @@
 //   RGB -> HSV, 4 HSV curves (H->H, H->S, S->S, V->V), x mask;
 //   HSV -> RGB is the residual; out = clip(img + residual, 0, 1) * mask.
 // A curve scales its output plane by c0 + sum_j slope_j * clip(n_seg*x - j, 0, 1),
-// accumulated from c0 in j order, with x the driving plane and n_seg = K-1
-// of its own group; then all three planes are clipped to [0, 1]. The HSV
-// wiring is sequential: the H->S curve reads the H that H->H has already
-// scaled and clipped. Nothing but the image, the mask, the knots and the
-// output touches device memory.
+// with x the driving plane and n_seg = K-1 of its own group; then all three
+// planes are clipped to [0, 1]. The HSV wiring is sequential: the H->S curve
+// reads the H that H->H has already scaled and clipped. Nothing but the
+// image, the mask, the knots and the output touches device memory.
+//
+// What bounds it: on paper, bytes. Without a mask it moves 24 B/px in fp32
+// (img 12, out 12), 398 MB or 0.119 ms at 1080p batch 8 on 3.35 TB/s, 12 B/px
+// with bf16 storage and 6 B/px on the u8 wire; with the O(1) lookup it does
+// some 360 fp32 operations per pixel (0.089 ms). In practice it is bound by
+// instruction issue: the 12 IEEE powf of the Lab round trip are a few dozen
+// instructions each, and with ~20 IEEE divisions by constants they are most
+// of what a pixel issues. A 15-ramp sum per curve (about 600 instructions a
+// pixel) took the same time in bf16 as in fp32.
+//
+// What this design does about it:
+// - O(1) knot lookup. The block's prologue builds, one thread per curve, the
+//   prefix table P[j] = c0 + s_0 + ... + s_(j-1), summed in that order in fp32
+//   with plain adds, and stores (P[j], s_j) as a float2. A curve is then
+//   s = n_seg * p, j = clamp(floor(s), 0, n_seg - 1),
+//   scale = fmaf(s_j, clamp(s - j, 0, 1), P[j]):
+//   one shared load and a handful of instructions instead of 15 ramps. The
+//   ramp sum was c0 plus fmaf(s_j, 1, .) for the full ramps, one partial FFMA
+//   and fmaf(s_j, 0, .) for the rest, so the result is bit-identical to it,
+//   below 0, above 1 and on a knot included. Each curve's table is padded to
+//   16 entries (128 B) at the default counts and aligned, so a warp's
+//   data-dependent reads hit 32 distinct banks or broadcast.
+// - No materialized mask. The HAS_MASK = false instance reads no mask and
+//   multiplies by nothing, which is bitwise the same as an all-ones mask.
+// - The u8 wire fused: a uint8 image is read as x / 255.0f (IEEE division),
+//   a uint8 mask as its value, and the output leaves as
+//   (uint8)min(max(v*255, 0), 255), the floor quantize of ops/wire.py, bit
+//   for bit. The build uses no fast math.
 //
 // Knot counts: the (16, 16, 16) default (the 48/48/64 split of CurlCurveNet)
-// is a template instance with every segment loop fully unrolled. Any other
-// counts with 2 <= K <= kMaxKnots per group run the runtime-loop instance.
-//
-// What bounds it: by the TPU kernel's own cost estimate, 480 FLOP per pixel
-// at the default counts; at 1080p batch 8 (16,588,800 px) that is 7.96
-// GFLOP, 0.119 ms at 67 TFLOP/s fp32. It moves 28 B per pixel in fp32 (img
-// 12, mask 4, out 12), 464.5 MB, 0.139 ms at 3.35 TB/s: on paper it is bound
-// by bytes (0.139 ms fp32). With bf16 storage, 232 MB take 0.069 ms and the
-// operations bound it at 0.119 ms.
-//
-// What really holds it back: the estimate leaves out the 12 IEEE powf of
-// the Lab round trip (sRGB linearize and encode, the Lab f and its inverse),
-// each a few dozen instructions, and counts a clamped ramp as 2 FLOP. So this
-// simple kernel is expected to be bound by instruction issue, at roughly
-// 1,300-1,600 instructions per pixel, well above either bound.
-//
-// What this design does about that: nothing yet. One thread per pixel, the
-// ten curves' slopes and c0 staged in shared memory per block (10 x 15
-// floats at the default, read as broadcasts), the ramps unrolled. Later
-// work: an O(1) knot lookup (floor(n_seg*x) picks the segment; the scale is
-// a prefix sum of slopes plus one partial ramp) in place of the 15-ramp
-// sum, and a mask that is never materialized when it is all ones.
+// is a template instance with 16-entry tables and compile-time segment
+// counts. Any other counts with 2 <= K <= kMaxKnots per group run the
+// runtime-count instance (64-entry tables), through the same lookup.
 //
 // Layout: NHWC img and out (3 consecutive values per pixel) and the
 // (B, H, W, 1) mask, read directly. Grid: x covers the pixels of one image
@@ -47,6 +55,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 #include "color_planes.cuh"
 
 namespace {
@@ -56,48 +66,56 @@ constexpr int kCurves = 10;
 constexpr int kMaxKnots = 65;
 constexpr int kMaxSeg = kMaxKnots - 1;
 
+// Storage <-> fp32. uint8 is the u8 wire: an image is x / 255 in and
+// floor-quantized out; a mask is its value.
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_float(uint8_t x) { return static_cast<float>(x) / 255.0f; }
+__device__ __forceinline__ float mask_value(float x) { return x; }
+__device__ __forceinline__ float mask_value(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float mask_value(uint8_t x) { return static_cast<float>(x); }
 
 template <typename T> __device__ __forceinline__ T from_float(float x);
 template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
+template <> __device__ __forceinline__ uint8_t from_float<uint8_t>(float x) {
+  return static_cast<uint8_t>(fminf(fmaxf(x * 255.0f, 0.0f), 255.0f));
+}
 
-// c0 + sum_j slope[j] * clip(n_seg * p - j, 0, 1). NSEG > 0 fixes the
-// segment count at compile time; NSEG == 0 reads it from n_seg.
+// c0 + sum_j slope_j * clip(n_seg * p - j, 0, 1) by the prefix table `tab`
+// of (P[j], slope_j). NSEG > 0 fixes the segment count at compile time;
+// NSEG == 0 reads it from n_seg.
 template <int NSEG>
-__device__ __forceinline__ float curve_scale(float p, const float* slope, float c0,
-                                             int n_seg) {
-  float scale = c0;
-  if constexpr (NSEG > 0) {
-    const float x = static_cast<float>(NSEG) * p;
-#pragma unroll
-    for (int j = 0; j < NSEG; ++j) {
-      scale += slope[j] * curl_planes::clampf(x - static_cast<float>(j), 0.0f, 1.0f);
-    }
-  } else {
-    const float x = static_cast<float>(n_seg) * p;
-    for (int j = 0; j < n_seg; ++j) {
-      scale += slope[j] * curl_planes::clampf(x - static_cast<float>(j), 0.0f, 1.0f);
-    }
-  }
-  return scale;
+__device__ __forceinline__ float curve_scale(float p, const float2* tab, int n_seg) {
+  const int n = NSEG > 0 ? NSEG : n_seg;
+  const float s = static_cast<float>(n) * p;
+  // fmaxf first, so a NaN plane picks segment 0 as the ramp sum does.
+  const int j = static_cast<int>(fminf(fmaxf(floorf(s), 0.0f), static_cast<float>(n - 1)));
+  const float2 e = tab[j];
+  return fmaf(e.y, curl_planes::clampf(s - static_cast<float>(j), 0.0f, 1.0f), e.x);
 }
 
 // Scale plane OUT by the curve driven by plane DRIVE, then clip all three.
 template <int NSEG, int DRIVE, int OUT>
-__device__ __forceinline__ void apply_curve(float (&pl)[3], const float* slope, float c0,
-                                            int n_seg) {
-  pl[OUT] *= curve_scale<NSEG>(pl[DRIVE], slope, c0, n_seg);
+__device__ __forceinline__ void apply_curve(float (&pl)[3], const float2* tab, int n_seg) {
+  pl[OUT] *= curve_scale<NSEG>(pl[DRIVE], tab, n_seg);
 #pragma unroll
   for (int c = 0; c < 3; ++c) pl[c] = curl_planes::clampf(pl[c], 0.0f, 1.0f);
 }
 
+template <bool HAS_MASK>
+__device__ __forceinline__ void apply_mask(float (&pl)[3], float m) {
+  if constexpr (HAS_MASK) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) pl[c] *= m;
+  }
+}
+
 // KL, KR, KH: knots per curve of each group; all 0 selects the runtime
-// counts k_lab, k_rgb, k_hsv.
-template <typename T, int KL, int KR, int KH>
+// counts k_lab, k_rgb, k_hsv. HAS_MASK = false reads no mask (all ones).
+template <typename T, bool HAS_MASK, int KL, int KR, int KH>
 __global__ void __launch_bounds__(kThreads)
 curve_enhance_kernel(const T* __restrict__ img, const T* __restrict__ mask,
                      const float* __restrict__ slopes, const float* __restrict__ c0,
@@ -106,6 +124,10 @@ curve_enhance_kernel(const T* __restrict__ img, const T* __restrict__ mask,
   constexpr bool kFixed = KL > 0;
   constexpr int kStaticSeg =
       kFixed ? ((KL > KR ? (KL > KH ? KL : KH) : (KR > KH ? KR : KH)) - 1) : kMaxSeg;
+  // Table entries per curve: a power of two of at least 16, so a curve's
+  // table starts on a 128 B boundary.
+  constexpr int kStride = kStaticSeg <= 16 ? 16 : (kStaticSeg <= 32 ? 32 : 64);
+  __shared__ __align__(128) float2 s_tab[kCurves * kStride];
   __shared__ float s_slope[kCurves * kStaticSeg];
   __shared__ float s_c0[kCurves];
 
@@ -114,11 +136,25 @@ curve_enhance_kernel(const T* __restrict__ img, const T* __restrict__ mask,
   const int n_hsv = kFixed ? KH - 1 : k_hsv - 1;
   const int seg = kFixed ? kStaticSeg : max(n_lab, max(n_rgb, n_hsv));
 
-  // Stage this image's (10, seg) slopes and 10 c0 values.
+  // Prologue: stage this image's (10, seg) slopes and 10 c0 values with the
+  // whole block, then one thread per curve sums its prefix table in j order.
   const long long image = blockIdx.y;
   const float* src = slopes + image * (kCurves * seg);
-  for (int i = threadIdx.x; i < kCurves * seg; i += blockDim.x) s_slope[i] = src[i];
+  for (int i = threadIdx.x; i < kCurves * seg; i += kThreads) s_slope[i] = src[i];
   if (threadIdx.x < kCurves) s_c0[threadIdx.x] = c0[image * kCurves + threadIdx.x];
+  __syncthreads();
+  if (threadIdx.x < kCurves) {
+    const int curve = threadIdx.x;
+    const int n = curve < 3 ? n_lab : (curve < 6 ? n_rgb : n_hsv);
+    const float* sl = s_slope + curve * seg;
+    float2* tab = s_tab + curve * kStride;
+    float prefix = s_c0[curve];
+    for (int j = 0; j < n; ++j) {
+      const float s = sl[j];
+      tab[j] = make_float2(prefix, s);
+      prefix = prefix + s;
+    }
+  }
   __syncthreads();
 
   const long long p = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
@@ -128,48 +164,49 @@ curve_enhance_kernel(const T* __restrict__ img, const T* __restrict__ mask,
   const float r = to_float(img[off]);
   const float g = to_float(img[off + 1]);
   const float b = to_float(img[off + 2]);
-  const float m = to_float(mask[px]);
+  const float m = HAS_MASK ? mask_value(mask[px]) : 1.0f;
 
   constexpr int NL = kFixed ? KL - 1 : 0;
   constexpr int NR = kFixed ? KR - 1 : 0;
   constexpr int NH = kFixed ? KH - 1 : 0;
-  const float* sl = s_slope;
+  const float2* t = s_tab;
   float pl[3];
 
   // Lab curves.
   curl_planes::lab_from_rgb(r, g, b, pl[0], pl[1], pl[2]);
-  apply_curve<NL, 0, 0>(pl, sl + 0 * seg, s_c0[0], n_lab);
-  apply_curve<NL, 1, 1>(pl, sl + 1 * seg, s_c0[1], n_lab);
-  apply_curve<NL, 2, 2>(pl, sl + 2 * seg, s_c0[2], n_lab);
-#pragma unroll
-  for (int c = 0; c < 3; ++c) pl[c] *= m;
+  apply_curve<NL, 0, 0>(pl, t + 0 * kStride, n_lab);
+  apply_curve<NL, 1, 1>(pl, t + 1 * kStride, n_lab);
+  apply_curve<NL, 2, 2>(pl, t + 2 * kStride, n_lab);
+  apply_mask<HAS_MASK>(pl, m);
 
   // RGB curves.
   curl_planes::rgb_from_lab(pl[0], pl[1], pl[2], pl[0], pl[1], pl[2]);
-  apply_curve<NR, 0, 0>(pl, sl + 3 * seg, s_c0[3], n_rgb);
-  apply_curve<NR, 1, 1>(pl, sl + 4 * seg, s_c0[4], n_rgb);
-  apply_curve<NR, 2, 2>(pl, sl + 5 * seg, s_c0[5], n_rgb);
-#pragma unroll
-  for (int c = 0; c < 3; ++c) pl[c] *= m;
+  apply_curve<NR, 0, 0>(pl, t + 3 * kStride, n_rgb);
+  apply_curve<NR, 1, 1>(pl, t + 4 * kStride, n_rgb);
+  apply_curve<NR, 2, 2>(pl, t + 5 * kStride, n_rgb);
+  apply_mask<HAS_MASK>(pl, m);
 
   // HSV curves: H->H, H->S, S->S, V->V.
   curl_planes::hsv_from_rgb(pl[0], pl[1], pl[2], pl[0], pl[1], pl[2]);
-  apply_curve<NH, 0, 0>(pl, sl + 6 * seg, s_c0[6], n_hsv);
-  apply_curve<NH, 0, 1>(pl, sl + 7 * seg, s_c0[7], n_hsv);
-  apply_curve<NH, 1, 1>(pl, sl + 8 * seg, s_c0[8], n_hsv);
-  apply_curve<NH, 2, 2>(pl, sl + 9 * seg, s_c0[9], n_hsv);
-#pragma unroll
-  for (int c = 0; c < 3; ++c) pl[c] *= m;
+  apply_curve<NH, 0, 0>(pl, t + 6 * kStride, n_hsv);
+  apply_curve<NH, 0, 1>(pl, t + 7 * kStride, n_hsv);
+  apply_curve<NH, 1, 1>(pl, t + 8 * kStride, n_hsv);
+  apply_curve<NH, 2, 2>(pl, t + 9 * kStride, n_hsv);
+  apply_mask<HAS_MASK>(pl, m);
 
   // Residual and composite.
-  float res0, res1, res2;
-  curl_planes::rgb_from_hsv(pl[0], pl[1], pl[2], res0, res1, res2);
-  out[off] = from_float<T>(curl_planes::clampf(r + res0, 0.0f, 1.0f) * m);
-  out[off + 1] = from_float<T>(curl_planes::clampf(g + res1, 0.0f, 1.0f) * m);
-  out[off + 2] = from_float<T>(curl_planes::clampf(b + res2, 0.0f, 1.0f) * m);
+  float res[3];
+  curl_planes::rgb_from_hsv(pl[0], pl[1], pl[2], res[0], res[1], res[2]);
+  const float in[3] = {r, g, b};
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    float v = curl_planes::clampf(in[c] + res[c], 0.0f, 1.0f);
+    if constexpr (HAS_MASK) v *= m;
+    out[off + c] = from_float<T>(v);
+  }
 }
 
-template <typename T>
+template <typename T, bool HAS_MASK>
 cudaError_t launch(const void* img, const void* mask, const void* slopes, const void* c0,
                    void* out, long long batch, long long pixels, int k_lab, int k_rgb,
                    int k_hsv, cudaStream_t stream) {
@@ -181,13 +218,22 @@ cudaError_t launch(const void* img, const void* mask, const void* slopes, const 
   const float* c = static_cast<const float*>(c0);
   T* o = static_cast<T*>(out);
   if (k_lab == 16 && k_rgb == 16 && k_hsv == 16) {
-    curve_enhance_kernel<T, 16, 16, 16><<<grid, kThreads, 0, stream>>>(
+    curve_enhance_kernel<T, HAS_MASK, 16, 16, 16><<<grid, kThreads, 0, stream>>>(
         i, mk, s, c, o, pixels, k_lab, k_rgb, k_hsv);
   } else {
-    curve_enhance_kernel<T, 0, 0, 0><<<grid, kThreads, 0, stream>>>(
+    curve_enhance_kernel<T, HAS_MASK, 0, 0, 0><<<grid, kThreads, 0, stream>>>(
         i, mk, s, c, o, pixels, k_lab, k_rgb, k_hsv);
   }
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch(const void* img, const void* mask, const void* slopes, const void* c0,
+                     void* out, long long batch, long long pixels, int k_lab, int k_rgb,
+                     int k_hsv, cudaStream_t stream) {
+  return mask != nullptr
+      ? launch<T, true>(img, mask, slopes, c0, out, batch, pixels, k_lab, k_rgb, k_hsv, stream)
+      : launch<T, false>(img, mask, slopes, c0, out, batch, pixels, k_lab, k_rgb, k_hsv, stream);
 }
 
 }  // namespace
@@ -195,25 +241,30 @@ cudaError_t launch(const void* img, const void* mask, const void* slopes, const 
 extern "C" {
 
 // img/out: (batch, pixels, 3) contiguous and mask: (batch, pixels, 1)
-// contiguous, all float32 (bf16 == 0) or all bfloat16 (bf16 == 1).
-// slopes: (batch, 10, S) contiguous float32, zero-padded, with
-// S = max(k_lab, k_rgb, k_hsv) - 1; c0: (batch, 10) float32. Each k in
-// 2..65. Launches on `stream` without synchronizing; returns
-// cudaGetLastError() after the launch.
+// contiguous or null (all ones), all float32 (dtype == 0), all bfloat16
+// (dtype == 1) or all uint8 (dtype == 2, the u8 wire). slopes: (batch, 10, S)
+// contiguous float32, zero-padded, with S = max(k_lab, k_rgb, k_hsv) - 1;
+// c0: (batch, 10) float32. Each k in 2..65. Launches on `stream` without
+// synchronizing; returns cudaGetLastError() after the launch.
 int curl_curve_enhance(const void* img, const void* mask, const void* slopes, const void* c0,
                        void* out, long long batch, long long pixels, int k_lab, int k_rgb,
-                       int k_hsv, int bf16, void* stream) {
+                       int k_hsv, int dtype, void* stream) {
   const bool bad_k = k_lab < 2 || k_rgb < 2 || k_hsv < 2 || k_lab > kMaxKnots ||
                      k_rgb > kMaxKnots || k_hsv > kMaxKnots;
-  if (batch <= 0 || batch > 65535 || pixels <= 0 || bad_k ||
+  if (batch <= 0 || batch > 65535 || pixels <= 0 || bad_k || dtype < 0 || dtype > 2 ||
       (pixels + kThreads - 1) / kThreads > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      bf16 ? launch<__nv_bfloat16>(img, mask, slopes, c0, out, batch, pixels, k_lab, k_rgb,
-                                   k_hsv, s)
-           : launch<float>(img, mask, slopes, c0, out, batch, pixels, k_lab, k_rgb, k_hsv, s);
+  cudaError_t err;
+  if (dtype == 2) {
+    err = dispatch<uint8_t>(img, mask, slopes, c0, out, batch, pixels, k_lab, k_rgb, k_hsv, s);
+  } else if (dtype == 1) {
+    err = dispatch<__nv_bfloat16>(img, mask, slopes, c0, out, batch, pixels, k_lab, k_rgb,
+                                  k_hsv, s);
+  } else {
+    err = dispatch<float>(img, mask, slopes, c0, out, batch, pixels, k_lab, k_rgb, k_hsv, s);
+  }
   return static_cast<int>(err);
 }
 

@@ -9,7 +9,9 @@ normalized coordinates) to bound device memory.
 
 Wire format: images may arrive as uint8 (scaled by 1/255 on the device) and
 leave as uint8 (`out_u8`, floor-quantized on the device), four times fewer
-bytes each way than fp32.
+bytes each way than fp32. A uint8 target with `out_u8` goes to the fused
+kernels as it is: they read u8 and write u8 (`ops.wire`), with no torch
+normalize or quantize pass around them.
 """
 
 from __future__ import annotations
@@ -26,46 +28,41 @@ from torch import Tensor
 from curl_tpu_torch.device import DeviceLike, resolve_device
 from curl_tpu_torch.models.curl_curve import CurlCurveNet
 from curl_tpu_torch.models.trispace import TriSpacePolyNet
-from curl_tpu_torch.ops import enhance
+from curl_tpu_torch.ops import enhance, wire
 
-# Bytes that a whole-image apply keeps live per target pixel, by impl:
-#   cuda (u8 wire): u8 target 3 + fp32 normalized target 12 + fp32 composite
-#     12 + two fp32 quantization temporaries (out*255, its clip) 24 + u8
-#     output 3 = 54 B.
+# Bytes that a whole-image apply keeps live per target pixel, by path:
+#   cuda_u8 (the u8 wire: a uint8 target with out_u8): the fused kernel
+#     reads the u8 target 3 and writes the u8 composite 3 = 6 B.
+#   cuda (any other target or output): the worst case is a float target
+#     with out_u8: fp32 target 12 + fp32 composite 12, then the quantize
+#     pass's product 12 and clamped copy 12 = 48 B (a u8 target with float
+#     output: 3 + 12 normalized + 12 composite = 27 B).
 #   torch: the NHWC fp32 intermediates of the plain path (input, one color
 #     space, its coordinate-extended copy, polynomial output, sigmoid,
 #     converted back, three residual terms and their sum) ~ 10 x 12-20 B
 #     plus the chunked monomial planes; 256 B is a round upper figure.
 # A whole image may take an eighth of the device's memory: on an 80 GB card
-# the cuda path bands images above 80e9 / 8 / 54 ~ 185 Mpx (an 8K frame is
-# 33 Mpx), the torch path above ~39 Mpx.
-BYTES_PER_PIXEL = {"cuda": 54, "torch": 256}
+# the u8 wire bands images above 80e9 / 8 / 6 ~ 1.7 Gpx, the other cuda
+# paths above ~210 Mpx (an 8K frame is 33 Mpx), the torch path above ~39 Mpx.
+BYTES_PER_PIXEL = {"cuda_u8": 6, "cuda": 48, "torch": 256}
 _MEMORY_SHARE = 8
 
 
-def default_tile_pixels(device: torch.device, impl: str) -> int:
+def default_tile_pixels(device: torch.device, impl: str, u8_wire: bool = False) -> int:
     """Per-image pixel bound above which `enhance_image` bands the apply:
     the device's memory (host memory for the CPU) over `_MEMORY_SHARE` and
-    the impl's bytes per pixel."""
+    the path's bytes per pixel. `u8_wire`: a uint8 target with `out_u8`,
+    which the fused kernel takes whole (impl "cuda" only)."""
     if device.type == "cuda":
         memory = torch.cuda.get_device_properties(device).total_memory
     else:
         memory = os.sysconf("SC_PHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
-    return memory // (_MEMORY_SHARE * BYTES_PER_PIXEL[impl])
+    path = "cuda_u8" if impl == "cuda" and u8_wire else impl
+    return memory // (_MEMORY_SHARE * BYTES_PER_PIXEL[path])
 
 
-def _norm_u8(x: Tensor, scale: bool) -> Tensor:
-    """uint8 wire format -> fp32: images scale by 1/255, masks just cast.
-    Float inputs pass through."""
-    if x.dtype == torch.uint8:
-        x = x.float()
-        return x / 255.0 if scale else x
-    return x
-
-
-def _quantize_u8(out: Tensor) -> Tensor:
-    """Floor quantization to uint8, as the host-side image writer does."""
-    return torch.clamp(out * 255.0, 0.0, 255.0).to(torch.uint8)
+def _is_u8(x) -> bool:
+    return x.dtype == torch.uint8 if isinstance(x, Tensor) else np.asarray(x).dtype == np.uint8
 
 
 def auto_tile_rows(height: int, width: int, budget_px: int) -> Optional[int]:
@@ -87,7 +84,10 @@ class Enhancer:
     CurlCurveNet follows its own `curve_impl` and applies in one fused pass,
     so the polynomial helpers (`coefficients`, `residual`, row bands) raise
     NotImplementedError for it. `auto_tile_pixels=None` derives the banding
-    bound from the device's memory (`default_tile_pixels`).
+    bounds from the device's memory (`default_tile_pixels`):
+    `auto_tile_pixels` for a float target or output, and `u8_tile_pixels`
+    for a uint8 target with `out_u8`, which the fused kernel takes whole.
+    A given value sets both.
     """
 
     def __init__(
@@ -106,10 +106,11 @@ class Enhancer:
         self.backbone_size = backbone_size
         self.impl = impl
         self.out_u8 = out_u8
-        self.auto_tile_pixels = (
-            default_tile_pixels(self.device, impl)
-            if auto_tile_pixels is None else auto_tile_pixels
-        )
+        if auto_tile_pixels is None:
+            self.auto_tile_pixels = default_tile_pixels(self.device, impl)
+            self.u8_tile_pixels = default_tile_pixels(self.device, impl, u8_wire=out_u8)
+        else:
+            self.auto_tile_pixels = self.u8_tile_pixels = auto_tile_pixels
 
     def _to_device(self, x) -> Tensor:
         return torch.as_tensor(x).to(self.device, non_blocking=True)
@@ -126,8 +127,8 @@ class Enhancer:
         """(B, s, s, 3), (B, s, s, 1) -> (R, L, H) each (B, 3, N).
         Polynomial models only."""
         self._polynomial_only()
-        img_small = _norm_u8(self._to_device(img_small), True)
-        mask_small = _norm_u8(self._to_device(mask_small), False)
+        img_small = wire.norm_u8(self._to_device(img_small))
+        mask_small = wire.norm_u8(self._to_device(mask_small), scale=False)
         return self.model.generate_coefficients(img_small, mask_small)
 
     @torch.inference_mode()
@@ -135,7 +136,7 @@ class Enhancer:
         """Apply coefficients at target resolution, optionally in row bands.
         Polynomial models only."""
         self._polynomial_only()
-        target = _norm_u8(self._to_device(target), True)
+        target = wire.norm_u8(self._to_device(target))
         r, l, h = coeffs
         _, height, width, _ = target.shape
         kw = dict(degree=self.model.polynomial_order, spatial=self.model.spatial,
@@ -153,24 +154,30 @@ class Enhancer:
     def _full(self, img_small, mask_small, target) -> Tensor:
         """The whole deployment path for one batch: coefficients (or knots),
         the fused apply with composite, and the u8 quantization, all on the
-        device."""
+        device. A uint8 target with `out_u8` stays uint8 end to end: one
+        kernel launch reads it and writes the u8 result."""
+        target = self._to_device(target)
+        u8_wire = self.out_u8 and target.dtype == torch.uint8
+        if not u8_wire:
+            target = wire.norm_u8(target)
         if self.is_curve:
-            img_small = _norm_u8(self._to_device(img_small), True)
-            mask_small = _norm_u8(self._to_device(mask_small), False)
-            target = _norm_u8(self._to_device(target), True)
+            img_small = wire.norm_u8(self._to_device(img_small))
+            mask_small = wire.norm_u8(self._to_device(mask_small), scale=False)
             with torch.inference_mode():
                 out, _ = self.model(img_small, mask_small, target)
-                return _quantize_u8(out) if self.out_u8 else out
-        r, l, h = self.coefficients(img_small, mask_small)
-        target = _norm_u8(self._to_device(target), True)
-        with torch.inference_mode():
-            out = enhance.trispace_enhance(
-                target, r, l, h,
-                degree=self.model.polynomial_order,
-                spatial=self.model.spatial,
-                impl=self.impl,
-            )
-            return _quantize_u8(out) if self.out_u8 else out
+        else:
+            r, l, h = self.coefficients(img_small, mask_small)
+            with torch.inference_mode():
+                out = enhance.trispace_enhance(
+                    target, r, l, h,
+                    degree=self.model.polynomial_order,
+                    spatial=self.model.spatial,
+                    impl=self.impl,
+                )
+        if self.out_u8 and not u8_wire:
+            with torch.inference_mode():
+                out = wire.quantize_u8(out)
+        return out
 
     def enhance_stream(self, batches: Iterable, max_in_flight: int = 6) -> Iterator[Tensor]:
         """Pipelined batch enhancement: yields outputs in order while at most
@@ -203,11 +210,13 @@ class Enhancer:
             event.synchronize()
         return out
 
-    def needs_banding(self, height: int, width: int) -> Optional[int]:
+    def needs_banding(self, height: int, width: int, u8_wire: bool = False) -> Optional[int]:
         """The row-band height to stream a (height, width) image in, or None
-        when a whole-image apply fits `auto_tile_pixels`. Curve models never
+        when a whole-image apply fits `auto_tile_pixels` (`u8_tile_pixels`
+        for a uint8 target with `out_u8`, `u8_wire`). Bands take the float
+        path, so their height follows `auto_tile_pixels`. Curve models never
         band: their apply is one fused pass."""
-        if self.is_curve:
+        if self.is_curve or (u8_wire and height * width <= self.u8_tile_pixels):
             return None
         rows = auto_tile_rows(height, width, self.auto_tile_pixels)
         if rows is not None and rows >= height:
@@ -248,17 +257,18 @@ class Enhancer:
         band height.
         """
         if tile_rows is None:
-            tile_rows = self.needs_banding(target.shape[1], target.shape[2])
+            tile_rows = self.needs_banding(target.shape[1], target.shape[2],
+                                           u8_wire=self.out_u8 and _is_u8(target))
         if tile_rows is None:
             out = self._full(img_small, mask_small, target)
         else:
-            target = _norm_u8(self._to_device(target), True)
+            target = wire.norm_u8(self._to_device(target))
             coeffs = self.coefficients(img_small, mask_small)
             with torch.inference_mode():
                 residual = self.residual(target, coeffs, tile_rows=tile_rows)
                 out = enhance.generate_image(target, residual)
                 if self.out_u8:
-                    out = _quantize_u8(out)
+                    out = wire.quantize_u8(out)
         if white_background and target_mask is not None:
             m = self._to_device(target_mask)
             with torch.inference_mode():

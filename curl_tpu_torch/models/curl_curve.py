@@ -23,7 +23,8 @@ from torch import Tensor, nn
 
 from curl_tpu_torch.device import DeviceLike, resolve_device
 from curl_tpu_torch.models import backbone as bb
-from curl_tpu_torch.ops import color, curves, enhance
+from curl_tpu_torch.ops import color, curves, enhance, wire
+from curl_tpu_torch.ops.color_planes import clip
 from curl_tpu_torch.ops.kernels.curve_kernel import fused_curve_enhance
 
 
@@ -34,7 +35,7 @@ def _curve_regularizer(knots: Tensor) -> Tensor:
 
 def curl_curve_layer(
     img: Tensor,
-    mask: Tensor,
+    mask: Optional[Tensor],
     knots_lab: Tensor,
     knots_rgb: Tensor,
     knots_hsv: Tensor,
@@ -42,13 +43,16 @@ def curl_curve_layer(
     impl: str = "cuda",
 ) -> tuple[Tensor, Tensor]:
     """Tri-space curve enhancement of (B,H,W,3) `img` under the (B,H,W,1)
-    `mask`, with knot parameters (B, 3K) / (B, 3K) / (B, 4K). Returns
-    (enhanced, regularizer (B,)).
+    `mask` (None: all ones, never materialized), with knot parameters
+    (B, 3K) / (B, 3K) / (B, 4K). Returns (enhanced, regularizer (B,)). A
+    uint8 image is the u8 wire (`ops.wire`): the result is uint8 too.
 
     impl="cuda" runs the whole pass as the fused kernel (its plain version
-    for CPU tensors; paper mode only); "torch" is the op chain."""
+    for CPU tensors; paper mode only), which reads and writes the u8 wire
+    itself; "torch" is the op chain."""
     enhance._check_impl(impl)
-    mask = mask.to(img.dtype)
+    if mask is not None:
+        mask = mask.to(img.dtype)
 
     if impl == "cuda":
         if mode != "paper":
@@ -61,11 +65,21 @@ def curl_curve_layer(
         reg = _curve_regularizer(kl) + _curve_regularizer(kr) + _curve_regularizer(kh)
         return out, reg
 
+    if img.dtype == torch.uint8:
+        out, reg = curl_curve_layer(
+            wire.norm_u8(img), None if mask is None else wire.norm_u8(mask, scale=False),
+            knots_lab, knots_rgb, knots_hsv, mode=mode, impl=impl,
+        )
+        return wire.quantize_u8(out), reg
+
+    def masked(x: Tensor) -> Tensor:
+        return x if mask is None else x * mask
+
     img_lab, reg_lab = curves.adjust_lab(color.rgb_to_lab(img), knots_lab, mode=mode)
-    img_rgb, reg_rgb = curves.adjust_rgb(color.lab_to_rgb(img_lab * mask), knots_rgb, mode=mode)
-    img_hsv, reg_hsv = curves.adjust_hsv(color.rgb_to_hsv(img_rgb * mask), knots_hsv, mode=mode)
-    residual = color.hsv_to_rgb(img_hsv * mask)
-    out = torch.clamp(img + residual, 0.0, 1.0) * mask
+    img_rgb, reg_rgb = curves.adjust_rgb(color.lab_to_rgb(masked(img_lab)), knots_rgb, mode=mode)
+    img_hsv, reg_hsv = curves.adjust_hsv(color.rgb_to_hsv(masked(img_rgb)), knots_hsv, mode=mode)
+    residual = color.hsv_to_rgb(masked(img_hsv))
+    out = masked(clip(img + residual, 0.0, 1.0))
     return out, reg_lab + reg_rgb + reg_hsv
 
 
@@ -128,16 +142,14 @@ class CurlCurveNet(nn.Module):
     ) -> tuple[Tensor, Tensor]:
         """Knots from (B,h,w,3) `img`; the curves apply to `img` under `mask`,
         or to the full-resolution `target_img` under `target_mask` (all ones
-        when not given). Returns (enhanced, regularizer)."""
+        when not given, and then never materialized). A uint8 `target_img`
+        is the u8 wire and gives a uint8 result. Returns (enhanced,
+        regularizer)."""
         knots = self.predict_knots(img)
         b1 = self.num_lab_points
         b2 = b1 + self.num_rgb_points
         if target_img is None:
             apply_img, apply_mask = img, mask
-        elif target_mask is None:
-            apply_img = target_img
-            apply_mask = torch.ones(target_img.shape[:3] + (1,), dtype=target_img.dtype,
-                                    device=target_img.device)
         else:
             apply_img, apply_mask = target_img, target_mask
         return curl_curve_layer(

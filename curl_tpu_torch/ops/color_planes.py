@@ -6,6 +6,10 @@ written as plain torch, which the kernel's plain version calls and
 The 3x3 matrix products are written out as explicit linear combinations.
 All functions take and return tuples of same-shaped tensors; the scalar
 helpers (`srgb_linearize`, ...) work elementwise on any shape.
+
+Bounds go through `clip` and `floor_at`, the forms of `jnp.clip` and
+`jnp.maximum`: at an exact tie they pass half of the gradient, where
+`torch.clamp` passes all of it. Forward values are the same.
 """
 
 from __future__ import annotations
@@ -31,6 +35,21 @@ EPS = 6.0 / 29.0
 RECIP_TINY = 1e-10
 
 
+def _bound(x: Tensor, value: float) -> Tensor:
+    return torch.full((), value, dtype=x.dtype, device=x.device)
+
+
+def floor_at(x: Tensor, lo: float) -> Tensor:
+    """max(x, lo) with `jnp.maximum`'s gradient: half of it at x == lo."""
+    return torch.maximum(x, _bound(x, lo))
+
+
+def clip(x: Tensor, lo: float, hi: float) -> Tensor:
+    """min(max(x, lo), hi), as `jnp.clip` computes it, so that half of the
+    gradient passes at a bound."""
+    return torch.minimum(torch.maximum(x, _bound(x, lo)), _bound(x, hi))
+
+
 def _mix(v0, v1, v2, m):
     """(v0,v1,v2) @ m for a 3x3 tuple-matrix m (rows = inputs)."""
     return tuple(v0 * m[0][k] + v1 * m[1][k] + v2 * m[2][k] for k in range(3))
@@ -50,24 +69,24 @@ def safe_reciprocal(x: Tensor) -> Tensor:
 
 def srgb_linearize(x: Tensor) -> Tensor:
     return branch(
-        x <= 0.04045, x / 12.92, ((torch.clamp(x, min=1e-4) + 0.055) / 1.055) ** 2.4
+        x <= 0.04045, x / 12.92, ((floor_at(x, 1e-4) + 0.055) / 1.055) ** 2.4
     )
 
 
 def srgb_encode(x: Tensor) -> Tensor:
     return branch(
-        x <= 0.0031308, x * 12.92, torch.clamp(x, min=1e-4) ** (1.0 / 2.4) * 1.055 - 0.055
+        x <= 0.0031308, x * 12.92, floor_at(x, 1e-4) ** (1.0 / 2.4) * 1.055 - 0.055
     )
 
 
 def lab_f(t: Tensor) -> Tensor:
     return branch(
-        t <= EPS**3, t / (3.0 * EPS**2) + 4.0 / 29.0, torch.clamp(t, min=1e-4) ** (1.0 / 3.0)
+        t <= EPS**3, t / (3.0 * EPS**2) + 4.0 / 29.0, floor_at(t, 1e-4) ** (1.0 / 3.0)
     )
 
 
 def lab_finv(t: Tensor) -> Tensor:
-    return branch(t <= EPS, 3.0 * EPS**2 * (t - 4.0 / 29.0), torch.clamp(t, min=1e-4) ** 3.0)
+    return branch(t <= EPS, 3.0 * EPS**2 * (t - 4.0 / 29.0), floor_at(t, 1e-4) ** 3.0)
 
 
 def lab_from_rgb(r, g, b):
@@ -96,9 +115,9 @@ def rgb_from_lab(l_, a_, b_):
 def hsv_from_rgb(r, g, b):
     """RGB -> HSV, every channel clamped to [1e-9, 1]. Hue uses additive
     per-argmax terms: channels tied for the maximum each add their term."""
-    r = torch.clamp(r, 1e-9, 1.0)
-    g = torch.clamp(g, 1e-9, 1.0)
-    b = torch.clamp(b, 1e-9, 1.0)
+    r = clip(r, 1e-9, 1.0)
+    g = clip(g, 1e-9, 1.0)
+    b = clip(b, 1e-9, 1.0)
     mx = torch.maximum(torch.maximum(r, g), b)
     mn = torch.minimum(torch.minimum(r, g), b)
     df = mx + (-1.0) * mn
@@ -119,9 +138,9 @@ def hsv_from_rgb(r, g, b):
         mx <= RECIP_TINY, torch.zeros_like(mx), (mx > RECIP_TINY).to(dt) * (df * mx_inv)
     )
     return (
-        torch.clamp(hue, 1e-9, 1.0),
-        torch.clamp(sat, 1e-9, 1.0),
-        torch.clamp(mx, 1e-9, 1.0),
+        clip(hue, 1e-9, 1.0),
+        clip(sat, 1e-9, 1.0),
+        clip(mx, 1e-9, 1.0),
     )
 
 
@@ -129,14 +148,14 @@ def rgb_from_hsv(h, s, v):
     """HSV -> RGB by branchless clamped hue ramps, inputs and outputs clamped
     to [0, 1]. Keeps the reference's expression shapes (e.g. `(v*(1-s)-v)/60`
     rather than the algebraically equal `-v*s/60`)."""
-    h = torch.clamp(h, 0.0, 1.0)
-    s = torch.clamp(s, 0.0, 1.0)
-    v = torch.clamp(v, 0.0, 1.0)
+    h = clip(h, 0.0, 1.0)
+    s = clip(s, 0.0, 1.0)
+    v = clip(v, 0.0, 1.0)
     h360 = h * 360.0
     vmin = v * (1.0 - s)
 
     def ramp(theta, width):
-        return torch.clamp(h360 - theta, 0.0, width)
+        return clip(h360 - theta, 0.0, width)
 
     m_dn = (vmin - v) / 60.0
     r = v + ramp(60.0, 60.0) * m_dn + ramp(240.0, 60.0) * (-1.0 * m_dn)
@@ -144,7 +163,7 @@ def rgb_from_hsv(h, s, v):
     g = vmin + ramp(0.0, 60.0) * m_up + ramp(180.0, 60.0) * (-1.0 * m_up)
     b = vmin + ramp(120.0, 60.0) * m_up + ramp(300.0, 60.0) * (-1.0 * m_up)
     return (
-        torch.clamp(r, 0.0, 1.0),
-        torch.clamp(g, 0.0, 1.0),
-        torch.clamp(b, 0.0, 1.0),
+        clip(r, 0.0, 1.0),
+        clip(g, 0.0, 1.0),
+        clip(b, 0.0, 1.0),
     )

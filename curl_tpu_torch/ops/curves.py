@@ -26,6 +26,8 @@ from typing import Literal
 import torch
 from torch import Tensor
 
+from curl_tpu_torch.ops.color_planes import clip
+
 Mode = Literal["paper", "fork"]
 MODES = ("paper", "fork")
 
@@ -50,7 +52,7 @@ def curve_scale(channel: Tensor, knots: Tensor, mode: Mode = "paper") -> Tensor:
     seg = torch.arange(n, dtype=channel.dtype, device=channel.device)[:, None, None, None]
     ramps = x - seg  # (n, B, H, W)
     if mode == "paper":
-        ramps = torch.clamp(ramps, 0.0, 1.0)
+        ramps = clip(ramps, 0.0, 1.0)
     # The contraction runs in full fp32: on a CUDA tensor `einsum` goes to
     # cuBLAS, which follows `torch.backends.cuda.matmul.allow_tf32` (off by
     # default), the role of the JAX package's Precision.HIGHEST here.
@@ -77,7 +79,7 @@ def apply_curve(
     scale = curve_scale(img[..., channel_in], knots, mode=mode)
     planes = list(img.unbind(-1))
     planes[channel_out] = planes[channel_out] * scale
-    return torch.clamp(torch.stack(planes, dim=-1), 0.0, 1.0), slope_smoothness(knots)
+    return clip(torch.stack(planes, dim=-1), 0.0, 1.0), slope_smoothness(knots)
 
 
 def _split_knots(params: Tensor, num_curves: int) -> list[Tensor]:

@@ -6,7 +6,8 @@ produce the enhancement residual (and optionally the composited image).
 Two interchangeable implementations:
   * impl="cuda" (the default): the fused kernel of
     `ops/kernels/trispace_kernel.py`, which never materializes the monomial
-    basis. A CPU tensor takes that module's plain version.
+    basis and, for a uint8 image, reads and writes the u8 wire itself. A CPU
+    tensor takes that module's plain version.
   * impl="torch": plain torch over NHWC tensors (`ops.color`, `ops.coords`,
     `ops.poly`), the same composition as the JAX package's XLA path.
 """
@@ -18,7 +19,8 @@ from typing import Optional
 import torch
 from torch import Tensor
 
-from curl_tpu_torch.ops import color, coords, poly
+from curl_tpu_torch.ops import color, coords, poly, wire
+from curl_tpu_torch.ops import color_planes as cp
 from curl_tpu_torch.ops.kernels.trispace_kernel import fused_trispace_residual
 
 IMPLS = ("cuda", "torch")
@@ -82,8 +84,8 @@ def trispace_residual(
 
 
 def generate_image(img: Tensor, residual: Tensor) -> Tensor:
-    """Composite the residual onto the input, clamped to [0, 1]."""
-    return torch.clamp(img + residual, 0.0, 1.0)
+    """Composite the residual onto the input, clipped to [0, 1]."""
+    return cp.clip(img + residual, 0.0, 1.0)
 
 
 def trispace_enhance(
@@ -97,14 +99,20 @@ def trispace_enhance(
     impl: str = "cuda",
 ) -> Tensor:
     """Residual and composite in one call: clip(img + residual, 0, 1). The
-    kernel path fuses the composite into its single pass. Whole image only:
-    this is the deployment hot path."""
+    kernel path fuses the composite into its single pass. A uint8 image
+    gives a uint8 result (the u8 wire of `ops.wire`), which the kernel reads
+    and writes itself. Whole image only: this is the deployment hot path."""
     _check_impl(impl)
     if impl == "cuda":
         return fused_trispace_residual(
             img, coeff_rgb, coeff_lab, coeff_hsv,
             degree=degree, spatial=spatial, composite=True,
         )
+    if img.dtype == torch.uint8:
+        return wire.quantize_u8(trispace_enhance(
+            wire.norm_u8(img), coeff_rgb, coeff_lab, coeff_hsv,
+            degree=degree, spatial=spatial, impl="torch",
+        ))
     res = trispace_residual(
         img, coeff_rgb, coeff_lab, coeff_hsv,
         degree=degree, spatial=spatial, impl="torch",

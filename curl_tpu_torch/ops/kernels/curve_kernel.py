@@ -7,6 +7,12 @@ the call raises. The backward pass runs autograd through the plain version
 for the image, the mask and all three knot stacks, as the JAX package runs
 its kernel's backward through XLA.
 
+`mask=None` means all ones: the kernel then reads no mask and multiplies by
+nothing, which is bitwise the same result. A uint8 image is the u8 wire: the
+kernel reads it as x / 255 (a uint8 mask as its value) and writes the
+floor-quantized result as uint8, the expressions of `ops.wire`, which the
+plain version applies around its fp32 math.
+
 `LAUNCHES` counts kernel launches (plain-version calls are not counted), so
 a run can show that its main path went through the kernel.
 """
@@ -15,11 +21,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 from torch import Tensor
 
-from curl_tpu_torch.ops import color, curves
+from curl_tpu_torch.ops import color, curves, wire
+from curl_tpu_torch.ops.color_planes import clip
 from curl_tpu_torch.ops.kernels import build
 
 LAUNCHES = 0
@@ -30,6 +38,8 @@ _MAX_BATCH = 65535  # grid.y
 MAX_KNOTS = 65
 # Curves per space, in the kernel's order: Lab, RGB, HSV.
 _CURVES = (3, 3, 4)
+# Storage type -> the kernel's dtype code.
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2}
 
 
 def prepare_knots(knots_lab: Tensor, knots_rgb: Tensor, knots_hsv: Tensor) -> tuple[Tensor, Tensor]:
@@ -47,25 +57,36 @@ def prepare_knots(knots_lab: Tensor, knots_rgb: Tensor, knots_hsv: Tensor) -> tu
 
 
 def fused_curve_enhance_reference(
-    img: Tensor, mask: Tensor, knots_lab: Tensor, knots_rgb: Tensor, knots_hsv: Tensor
+    img: Tensor, mask: Optional[Tensor], knots_lab: Tensor, knots_rgb: Tensor,
+    knots_hsv: Tensor,
 ) -> Tensor:
     """The kernel's function in plain torch on the NHWC conversions of
     `ops.color` and the paper-mode curves of `ops.curves`: fp32 math (fp64
     for a float64 image, which serves as a high-precision yardstick); the
-    result in img's dtype."""
+    result in img's dtype. `mask=None` multiplies by nothing. A uint8 image
+    takes the u8 wire around it: `wire.quantize_u8` of the fp32 result on
+    `wire.norm_u8(img)`, with a uint8 mask cast as it is."""
+    if img.dtype == torch.uint8:
+        return wire.quantize_u8(fused_curve_enhance_reference(
+            wire.norm_u8(img), None if mask is None else wire.norm_u8(mask, scale=False),
+            knots_lab, knots_rgb, knots_hsv,
+        ))
     x = img if img.dtype == torch.float64 else img.float()
-    m = mask.to(x.dtype)
+    m = None if mask is None else mask.to(x.dtype)
+
+    def masked(planes: Tensor) -> Tensor:
+        return planes if m is None else planes * m
 
     def apply_set(planes: Tensor, knots: Tensor, wiring) -> Tensor:
         for i, (drive, out) in enumerate(wiring):
             planes, _ = curves.apply_curve(planes, knots[:, i].to(x.dtype), drive, out)
         return planes
 
-    lab = apply_set(color.rgb_to_lab(x), knots_lab, curves.LAB_WIRING) * m
-    rgb = apply_set(color.lab_to_rgb(lab), knots_rgb, curves.RGB_WIRING) * m
-    hsv = apply_set(color.rgb_to_hsv(rgb), knots_hsv, curves.HSV_WIRING) * m
+    lab = masked(apply_set(color.rgb_to_lab(x), knots_lab, curves.LAB_WIRING))
+    rgb = masked(apply_set(color.lab_to_rgb(lab), knots_rgb, curves.RGB_WIRING))
+    hsv = masked(apply_set(color.rgb_to_hsv(rgb), knots_hsv, curves.HSV_WIRING))
     residual = color.hsv_to_rgb(hsv)
-    return (torch.clamp(x + residual, 0.0, 1.0) * m).to(img.dtype)
+    return masked(clip(x + residual, 0.0, 1.0)).to(img.dtype)
 
 
 @functools.cache
@@ -78,7 +99,7 @@ def _library() -> ctypes.CDLL:
         ctypes.c_void_p,  # out
         ctypes.c_longlong, ctypes.c_longlong,  # batch, pixels per image
         ctypes.c_int, ctypes.c_int, ctypes.c_int,  # k_lab, k_rgb, k_hsv
-        ctypes.c_int,  # bf16
+        ctypes.c_int,  # dtype
         ctypes.c_void_p,  # stream
     ]
     lib.curl_curve_enhance.restype = ctypes.c_int
@@ -87,17 +108,17 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _launch(img: Tensor, mask: Tensor, knots_lab: Tensor, knots_rgb: Tensor,
+def _launch(img: Tensor, mask: Optional[Tensor], knots_lab: Tensor, knots_rgb: Tensor,
             knots_hsv: Tensor) -> Tensor:
     global LAUNCHES
-    if img.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"img must be float32 or bfloat16; got {img.dtype}")
-    if mask.dtype != img.dtype:
+    if img.dtype not in _DTYPES:
+        raise TypeError(f"img must be float32, bfloat16 or uint8; got {img.dtype}")
+    if mask is not None and mask.dtype != img.dtype:
         raise TypeError(f"mask must be in img's dtype {img.dtype}; got {mask.dtype}")
-    if not (img.is_contiguous() and mask.is_contiguous()):
+    if not (img.is_contiguous() and (mask is None or mask.is_contiguous())):
         raise ValueError("img and mask must be contiguous (NHWC)")
     for k in (mask, knots_lab, knots_rgb, knots_hsv):
-        if k.device != img.device:
+        if k is not None and k.device != img.device:
             raise ValueError(f"inputs on {k.device}, image on {img.device}")
     b, h, w, _ = img.shape
     if not 0 < b <= _MAX_BATCH:
@@ -112,9 +133,9 @@ def _launch(img: Tensor, mask: Tensor, knots_lab: Tensor, knots_rgb: Tensor,
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream(img.device).cuda_stream
         rc = lib.curl_curve_enhance(
-            img.data_ptr(), mask.data_ptr(), slopes.data_ptr(), c0.data_ptr(), out.data_ptr(),
-            b, h * w, knots_lab.shape[-1], knots_rgb.shape[-1], knots_hsv.shape[-1],
-            int(img.dtype == torch.bfloat16), stream,
+            img.data_ptr(), None if mask is None else mask.data_ptr(), slopes.data_ptr(),
+            c0.data_ptr(), out.data_ptr(), b, h * w, knots_lab.shape[-1],
+            knots_rgb.shape[-1], knots_hsv.shape[-1], _DTYPES[img.dtype], stream,
         )
     if rc != 0:
         msg = lib.curl_curve_error_string(rc).decode()
@@ -133,29 +154,33 @@ class _FusedCurve(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        inputs = [t.detach().requires_grad_(need)
+        inputs = [None if t is None else t.detach().requires_grad_(need)
                   for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
-        wanted = [t for t in inputs if t.requires_grad]
+        wanted = [t for t in inputs if t is not None and t.requires_grad]
         grads = iter(())
         if wanted:
             with torch.enable_grad():
                 out = fused_curve_enhance_reference(*inputs)
                 grads = iter(torch.autograd.grad(out, wanted, grad))
-        return tuple(next(grads) if t.requires_grad else None for t in inputs)
+        return tuple(next(grads) if t is not None and t.requires_grad else None
+                     for t in inputs)
 
 
 def fused_curve_enhance(
-    img: Tensor, mask: Tensor, knots_lab: Tensor, knots_rgb: Tensor, knots_hsv: Tensor
+    img: Tensor, mask: Optional[Tensor], knots_lab: Tensor, knots_rgb: Tensor,
+    knots_hsv: Tensor,
 ) -> Tensor:
     """Paper-mode knot-curve enhancement of (B, H, W, 3) `img` under the
-    (B, H, W, 1) `mask`, with exponentiated knot stacks (B, 3, K_lab),
-    (B, 3, K_rgb) and (B, 4, K_hsv), each K in 2..MAX_KNOTS. Returns
-    clip(img + residual, 0, 1) * mask in img's dtype. A CUDA tensor launches
-    the kernel; a CPU tensor takes the plain version."""
+    (B, H, W, 1) `mask` (None: all ones, never materialized), with
+    exponentiated knot stacks (B, 3, K_lab), (B, 3, K_rgb) and (B, 4, K_hsv),
+    each K in 2..MAX_KNOTS. Returns clip(img + residual, 0, 1) * mask in
+    img's dtype; a uint8 image returns the uint8 result of the u8 wire, with
+    no gradient. A CUDA tensor launches the kernel; a CPU tensor takes the
+    plain version."""
     if img.dim() != 4 or img.shape[-1] != 3:
         raise ValueError(f"img must be (B, H, W, 3); got {tuple(img.shape)}")
     b, h, w, _ = img.shape
-    if tuple(mask.shape) != (b, h, w, 1):
+    if mask is not None and tuple(mask.shape) != (b, h, w, 1):
         raise ValueError(f"mask must be {(b, h, w, 1)}; got {tuple(mask.shape)}")
     for name, k, n in zip(("lab", "rgb", "hsv"), (knots_lab, knots_rgb, knots_hsv), _CURVES):
         if k.dim() != 3 or tuple(k.shape[:2]) != (b, n) or not 2 <= k.shape[-1] <= MAX_KNOTS:
@@ -167,4 +192,7 @@ def fused_curve_enhance(
         return fused_curve_enhance_reference(img, mask, knots_lab, knots_rgb, knots_hsv)
     if img.device.type != "cuda":
         raise ValueError(f"unsupported device {img.device}")
+    if img.dtype == torch.uint8:
+        # The quantized wire carries no gradient.
+        return _launch(img, mask, knots_lab, knots_rgb, knots_hsv)
     return _FusedCurve.apply(img, mask, knots_lab, knots_rgb, knots_hsv)

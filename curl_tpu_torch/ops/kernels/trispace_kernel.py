@@ -7,6 +7,10 @@ a tensor on the CPU. A CUDA tensor never falls back: the kernel builds and
 launches, or the call raises. The backward pass runs autograd through the
 plain version, as the JAX package runs its kernel's backward through XLA.
 
+A uint8 image (composite only) is the u8 wire: the kernel reads it as
+x / 255 and writes the floor-quantized composite as uint8, the expressions
+of `ops.wire`, which the plain version applies around its fp32 math.
+
 `LAUNCHES` counts kernel launches (plain-version calls are not counted), so
 a run can show that its main path went through the kernel.
 """
@@ -22,7 +26,7 @@ import torch.nn.functional as F
 from torch import Tensor
 
 from curl_tpu_torch.ops import color_planes as cp
-from curl_tpu_torch.ops import coords, poly
+from curl_tpu_torch.ops import coords, poly, wire
 from curl_tpu_torch.ops.kernels import build
 
 LAUNCHES = 0
@@ -30,8 +34,10 @@ LAUNCHES = 0
 _SOURCE = "trispace_kernel"
 # The kernel carries the chain tables of degree 4 only.
 _KERNEL_DEGREE = 4
-_MAX_BATCH = 65535  # grid.y
+_MAX_GRID_YZ = 65535  # rows (grid.y) and images (grid.z)
 _INT32_MAX = 2**31 - 1
+# Storage type -> the kernel's dtype code.
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2}
 
 
 def _resolve_tile(img: Tensor, row0, static_tile, tile):
@@ -61,7 +67,16 @@ def fused_trispace_residual_reference(
 ) -> Tensor:
     """The kernel's function in plain torch: fp32 math on the planes of
     `ops.color_planes`, the chained polynomial of `ops.poly`, the coordinate
-    planes of `ops.coords`; the result in img's dtype."""
+    planes of `ops.coords`; the result in img's dtype. A uint8 image takes
+    the u8 wire around it: `wire.quantize_u8` of the fp32 composite of
+    `wire.norm_u8(img)`."""
+    if img.dtype == torch.uint8:
+        if not composite:
+            raise ValueError("a uint8 image takes composite=True (the u8 wire)")
+        return wire.quantize_u8(fused_trispace_residual_reference(
+            wire.norm_u8(img), coeff_rgb, coeff_lab, coeff_hsv, row0, degree=degree,
+            spatial=spatial, total_h=total_h, total_w=total_w, composite=True,
+        ))
     b, h, w, _ = img.shape
     x = img.float()
     rgb = (x[..., 0], x[..., 1], x[..., 2])
@@ -95,7 +110,7 @@ def fused_trispace_residual_reference(
             o = cp.rgb_from_hsv(*o)
         res = [r + 2.0 * (oc - 0.5) for r, oc in zip(res, o)]
     if composite:
-        res = [torch.clamp(p + r, 0.0, 1.0) for p, r in zip(rgb, res)]
+        res = [cp.clip(p + r, 0.0, 1.0) for p, r in zip(rgb, res)]
     return torch.stack(res, dim=-1).to(img.dtype)
 
 
@@ -107,7 +122,7 @@ def _library() -> ctypes.CDLL:
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # img, coef, out
         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,  # batch, height, width
         ctypes.c_int, ctypes.c_int, ctypes.c_int,  # row0, total_h, total_w
-        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # spatial, composite, bf16
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # spatial, composite, dtype
         ctypes.c_void_p,  # stream
     ]
     lib.curl_trispace_residual.restype = ctypes.c_int
@@ -128,8 +143,10 @@ def _launch(
     composite: bool,
 ) -> Tensor:
     global LAUNCHES
-    if img.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"img must be float32 or bfloat16; got {img.dtype}")
+    if img.dtype not in _DTYPES:
+        raise TypeError(f"img must be float32, bfloat16 or uint8; got {img.dtype}")
+    if img.dtype == torch.uint8 and not composite:
+        raise ValueError("a uint8 image takes composite=True (the u8 wire)")
     if img.dim() != 4 or img.shape[-1] != 3:
         raise ValueError(f"img must be (B, H, W, 3); got {tuple(img.shape)}")
     if not img.is_contiguous():
@@ -138,8 +155,10 @@ def _launch(
         if c.device != img.device:
             raise ValueError(f"coefficients on {c.device}, image on {img.device}")
     b, h, w, _ = img.shape
-    if not 0 < b <= _MAX_BATCH:
-        raise ValueError(f"batch must be in 1..{_MAX_BATCH}; got {b}")
+    if not 0 < b <= _MAX_GRID_YZ:
+        raise ValueError(f"batch must be in 1..{_MAX_GRID_YZ}; got {b}")
+    if h > _MAX_GRID_YZ:
+        raise ValueError(f"height must be at most {_MAX_GRID_YZ} rows; got {h}")
     if max(w, total_h, total_w, abs(row0) + h) > _INT32_MAX:
         raise ValueError("image dimensions must fit in int32")
     # (B, space, N, 4): each monomial's three channel coefficients as one
@@ -155,7 +174,7 @@ def _launch(
         stream = torch.cuda.current_stream(img.device).cuda_stream
         rc = lib.curl_trispace_residual(
             img.data_ptr(), packed.data_ptr(), out.data_ptr(), b, h, w, row0, total_h,
-            total_w, int(spatial), int(composite), int(img.dtype == torch.bfloat16), stream,
+            total_w, int(spatial), int(composite), _DTYPES[img.dtype], stream,
         )
     if rc != 0:
         msg = lib.curl_cuda_error_string(rc).decode()
@@ -207,11 +226,13 @@ def fused_trispace_residual(
 ) -> Tensor:
     """Fused tri-space residual of (B, H, W, 3) `img` with three (B, 3, N)
     coefficient stacks; `composite=True` returns clip(img + residual, 0, 1).
+    A uint8 image (composite only) returns the uint8 composite of the u8
+    wire, with no gradient.
 
     Tiling: `tile` = (row_offset, col_offset, total_h, total_w), or `row0`
     with `static_tile` = (col_offset, total_h, total_w). Bands must span the
     full width (col_offset 0). A CUDA tensor launches the kernel (degree 4
-    only); a CPU tensor takes the plain version.
+    only, at most 65,535 rows); a CPU tensor takes the plain version.
     """
     b, h, w, _ = img.shape
     row0, col0, th, tw = _resolve_tile(img, row0, static_tile, tile)
@@ -230,5 +251,8 @@ def fused_trispace_residual(
         raise ValueError(f"unsupported device {img.device}")
     if degree != _KERNEL_DEGREE:
         raise ValueError(f"the CUDA kernel is built for degree {_KERNEL_DEGREE}; got {degree}")
+    if img.dtype == torch.uint8:
+        # The quantized wire carries no gradient.
+        return _launch(img, coeff_rgb, coeff_lab, coeff_hsv, row0, spatial, th, tw, composite)
     return _FusedTrispace.apply(img, coeff_rgb, coeff_lab, coeff_hsv, row0,
                                 spatial, th, tw, composite)

@@ -12,7 +12,9 @@ places, and the Lab matrix amplifies `pow` differences ~x500
 (docs/PARITY.md). bf16: the 99.9th percentile within 1e-2, since hue-branch
 flips under bf16 rounding make isolated pixels large. K2 at knot logits of
 std 0.05 holds the same 2e-4 max; its ten sequential curves can flip a clip
-or hue branch at larger knots, which the 99.9th percentile bounds.
+or hue branch at larger knots, which the 99.9th percentile bounds. The u8
+wire (uint8 in and out): at least 99.9% of the values equal to the plain
+version's, none more than 1 apart.
 """
 
 import numpy as np
@@ -69,6 +71,40 @@ def test_kernel_matches_plain(cuda, b, h, w, n, kw):
     assert float((got - expect).abs().max()) <= 2e-4
 
 
+@pytest.mark.parametrize("tile", [(40, 0, 100, 23), (0, 0, 17, 23)], ids=["band", "whole"])
+def test_fold_on_odd_width(cuda, tile):
+    """The per-row y-fold at row0 != 0 (a band of a taller image) and on an
+    odd width, whose last block of each row is ragged."""
+    img, cs = _inputs(20, 2, 17, 23)
+    got = tk.fused_trispace_residual(img, *cs, tile=tile, composite=True)
+    expect = _plain(img, cs, tile=tile, composite=True)
+    assert float((got - expect).abs().max()) <= 2e-4
+
+
+def _u8_close(got, expect):
+    """The u8 wire's rule: at least 99.9% of the values equal, none more
+    than 1 apart."""
+    assert got.dtype == torch.uint8 and got.shape == expect.shape
+    diff = (got.int() - expect.int()).abs()
+    assert int(diff.max()) <= 1 and float((diff == 0).float().mean()) >= 0.999
+
+
+@pytest.mark.parametrize("spatial,tile", [(True, None), (True, (40, 0, 100, 23)),
+                                          (False, None)], ids=["spatial", "band", "non_spatial"])
+def test_u8_wire_matches_plain(cuda, spatial, tile):
+    rng = np.random.default_rng(21)
+    img = torch.from_numpy(rng.integers(0, 256, (2, 17, 23, 3)).astype(np.uint8)).to(cuda)
+    _, cs = _inputs(21, 2, 17, 23, n=126 if spatial else 35)
+    kw = dict(spatial=spatial, composite=True)
+    if tile is not None:
+        kw["tile"] = tile
+    before = tk.LAUNCHES
+    got = tk.fused_trispace_residual(img, *cs, **kw)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES == before + 1
+    _u8_close(got, _plain(img, cs, **kw))
+
+
 def test_band_equals_whole_slice(cuda):
     img, cs = _inputs(1, 1, 64, 48)
     whole = tk.fused_trispace_residual(img, *cs)
@@ -118,6 +154,10 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         tk.fused_trispace_residual(img.transpose(1, 2), *cs)
     with pytest.raises(ValueError, match="degree"):
         tk.fused_trispace_residual(img, *[c[..., :56].contiguous() for c in cs], degree=3)
+    with pytest.raises(ValueError, match="composite=True"):
+        tk.fused_trispace_residual(img.to(torch.uint8), *cs)
+    with pytest.raises(ValueError, match="65535 rows"):
+        tk.fused_trispace_residual(torch.zeros(1, 65536, 1, 3, device=cuda), *cs)
 
 
 def test_enhance_paths_agree(cuda):
@@ -176,6 +216,30 @@ def test_curve_kernel_matches_plain(cuda, b, h, w, counts):
     assert float((got - expect).abs().max()) <= 2e-4
 
 
+@pytest.mark.parametrize("counts", [(16, 16, 16), (8, 12, 20)], ids=["default", "runtime"])
+def test_curve_kernel_without_mask(cuda, counts):
+    """mask=None reads no mask: bitwise the kernel with a ones mask, and
+    within 2e-4 of the plain version."""
+    img, _, *knots = _curve_inputs(17, 2, 33, 31, counts)
+    before = ck.LAUNCHES
+    got = ck.fused_curve_enhance(img, None, *knots)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES == before + 1
+    assert torch.equal(got, ck.fused_curve_enhance(img, torch.ones_like(img[..., :1]), *knots))
+    assert float((got - ck.fused_curve_enhance_reference(img, None, *knots)).abs().max()) <= 2e-4
+
+
+@pytest.mark.parametrize("counts,masked", [((16, 16, 16), False), ((16, 16, 16), True),
+                                           ((8, 12, 20), False)],
+                         ids=["default", "masked", "runtime"])
+def test_curve_u8_wire_matches_plain(cuda, counts, masked):
+    img, mask, *knots = _curve_inputs(18, 2, 33, 31, counts)
+    img = (img * 255).to(torch.uint8)
+    mask = mask.to(torch.uint8) if masked else None
+    got = ck.fused_curve_enhance(img, mask, *knots)
+    _u8_close(got, ck.fused_curve_enhance_reference(img, mask, *knots))
+
+
 def test_curve_kernel_large_knots_quantile(cuda):
     args = _curve_inputs(11, 2, 96, 160, std=0.2)
     err = (ck.fused_curve_enhance(*args) - ck.fused_curve_enhance_reference(*args)).abs()
@@ -218,7 +282,7 @@ def test_curve_gradients_match_plain_autograd(cuda):
 
 def test_curve_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     img, mask, *knots = _curve_inputs(15, 1, 8, 8)
-    with pytest.raises(TypeError, match="float32 or bfloat16"):
+    with pytest.raises(TypeError, match="float32, bfloat16 or uint8"):
         ck.fused_curve_enhance(img.half(), mask.half(), *knots)
     with pytest.raises(TypeError, match="mask must be"):
         ck.fused_curve_enhance(img, mask.bfloat16(), *knots)

@@ -123,12 +123,9 @@ def test_prepare_knots_equals_jax(rng, counts):
 
 def test_autograd_function_backward_matches_jax(rng, monkeypatch):
     """The autograd.Function's backward (autograd through the plain version)
-    against the JAX kernel's custom VJP, for the image and all three knot
-    stacks. On the CPU the plain version stands in for the forward launch.
-
-    The mask gradient is only checked to be finite: where a curve saturates
-    a plane at exactly 1.0, the mask's product feeds a clamp at its bound,
-    where `torch.clamp` passes the gradient and `jnp.clip` halves it."""
+    against the JAX kernel's custom VJP, for the image, the mask and all
+    three knot stacks. On the CPU the plain version stands in for the
+    forward launch."""
     monkeypatch.setattr(ck, "_launch", ck.fused_curve_enhance_reference)
     img, mask, _ = _inputs(rng, 1, 16, 16)
     img = np.clip(img, 0.2, 0.8)
@@ -143,10 +140,8 @@ def test_autograd_function_backward_matches_jax(rng, monkeypatch):
         with pltpu.force_tpu_interpret_mode():
             return jnp.sum(jck.fused_curve_enhance(*a) * weight)
 
-    jgrads = list(jax.grad(loss)(tuple(map(jnp.asarray, (img, mask, *stacks)))))
-    assert torch.isfinite(args[1].grad).all() and float(args[1].grad.abs().max()) > 0
-    del args[1], jgrads[1]
-    for name, t, g in zip(("img", "lab", "rgb", "hsv"), args, jgrads):
+    jgrads = jax.grad(loss)(tuple(map(jnp.asarray, (img, mask, *stacks))))
+    for name, t, g in zip(("img", "mask", "lab", "rgb", "hsv"), args, jgrads):
         assert float(t.grad.abs().max()) > 0, name
         np.testing.assert_allclose(t.grad.numpy(), np.asarray(g), atol=5e-4, rtol=1e-4,
                                    err_msg=name)

@@ -152,6 +152,36 @@ def test_default_tile_pixels_from_memory(pair):
     enh = Enhancer(model, device="cpu", backbone_size=PREDICT)
     assert enh.auto_tile_pixels == tengine.default_tile_pixels(torch.device("cpu"), "cuda")
     assert enh.auto_tile_pixels > 1920 * 1080
+    assert enh.u8_tile_pixels == enh.auto_tile_pixels
+
+
+def test_default_u8_wire_bound_from_memory(pair):
+    """With out_u8 the float bound stays, and a uint8 target gets the fused
+    u8 wire's larger one."""
+    _, _, model = pair
+    cpu = torch.device("cpu")
+    enh = Enhancer(model, device="cpu", backbone_size=PREDICT, out_u8=True)
+    assert enh.auto_tile_pixels == tengine.default_tile_pixels(cpu, "cuda")
+    assert enh.u8_tile_pixels == tengine.default_tile_pixels(cpu, "cuda", u8_wire=True)
+    assert enh.u8_tile_pixels > enh.auto_tile_pixels
+
+
+def test_u8_wire_bound_decides_whole_image_only(pair, rng):
+    """A uint8 target with out_u8 is taken whole up to `u8_tile_pixels`; a
+    float target with out_u8 bands at `auto_tile_pixels`, and so does a u8
+    target past the u8 bound, at the float path's band height."""
+    _, _, model = pair
+    enh = Enhancer(model, device="cpu", backbone_size=PREDICT, out_u8=True)
+    enh.auto_tile_pixels, enh.u8_tile_pixels = 2000, H * W
+    assert enh.needs_banding(H, W, u8_wire=True) is None
+    assert enh.needs_banding(H, W) == 32
+    assert enh.needs_banding(2 * H, W, u8_wire=True) == 32
+    img, mask, target = _batch(rng, u8=True)
+    whole = enh.enhance_image(img, mask, target)
+    banded = enh.enhance_image(img, mask, target, tile_rows=32)
+    assert whole.dtype == banded.dtype == torch.uint8
+    diff = np.abs(whole.numpy().astype(np.int32) - banded.numpy().astype(np.int32))
+    assert diff.max() <= 1 and (diff == 0).mean() >= 0.999
 
 
 def test_preprocessing_matches_jax(rng):

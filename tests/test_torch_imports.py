@@ -22,6 +22,7 @@ MODULES = [
     "curl_tpu_torch.ops.curves",
     "curl_tpu_torch.ops.enhance",
     "curl_tpu_torch.ops.poly",
+    "curl_tpu_torch.ops.wire",
     "curl_tpu_torch.ops.kernels",
     "curl_tpu_torch.ops.kernels.build",
     "curl_tpu_torch.ops.kernels.curve_kernel",
@@ -34,6 +35,8 @@ MODULES = [
     "curl_tpu_torch.export.torch_convert",
     "curl_tpu_torch.infer",
     "curl_tpu_torch.infer.engine",
+    "curl_tpu_torch.tools",
+    "curl_tpu_torch.tools.kernel_probe",
 ]
 
 

@@ -179,6 +179,8 @@ def _parse_chain(name: str):
     return pairs
 
 
-@pytest.mark.parametrize("name,num_vars", [("kChain5", 5), ("kChain3", 3)])
+@pytest.mark.parametrize("name,num_vars", [("kChain4", 4), ("kChain3", 3)])
 def test_cuda_chain_tables_equal_monomial_chain(name, num_vars):
+    """kChain4 is the spatial chain over (c1, c2, c3, x) once y is folded
+    into the coefficients; kChain3 the non-spatial one."""
     assert _parse_chain(name) == tpoly.monomial_chain(4, num_vars)
