@@ -39,6 +39,41 @@ Phases, each of which fails the run:
      K2 in fp32, bf16 and u8 (K2 with and without a mask), and the unfused
      u8 chain of the first designs (torch normalize, kernel, torch quantize)
      around each kernel.
+  9. Polynomial training: TriSpacePolyNet rw_t at full width under the
+     Config defaults (batch 32, 256x256 crops, augment on, residual_impl
+     "cuda", TF32 off).
+     (0) K3, the backward of the tie-exact clip (csrc/tie_clip_grad.cu,
+         compiled by NVRTC through torch.cuda.jiterator at its first launch
+         in phase 1), bitwise against its plain version on tie-heavy input at
+         the largest clip shape of the training path (one curve's ramp
+         stack, batch 32 of 256x256x15), with the gradient contiguous,
+         permuted and expanded, for `clip` and `floor_at`; bf16 and fp64 on
+         a smaller shape.
+     (a) One train step through K1 (kernel forward, plain backward) and one
+         through the plain path from a copy with the same weights (seed 0),
+         augment off, on the same u8 batch: losses within rel 1e-4, the
+         head's last-layer gradient within relative L2 1e-3, BN buffers
+         equal.
+     (b) Training on a synthetic dataset: 64 training and 32 validation
+         pairs of 320x400 u8 from numpy.random.default_rng((seed, index)),
+         the target a fixed tone curve of the input, masks ~90% ones. With
+         PIL they are written as PNGs and `python -m curl_tpu_torch.cli.main`
+         trains on them (`cli.main.main([...])`); without PIL a Trainer runs
+         on a Loader subclass defined here that synthesizes each example from
+         its index. 2 epochs of 2 steps, an eval pass and a checkpoint after
+         each. Every epoch's loss is finite, K1's launch count (0 just before,
+         read just after) equals the train steps plus the eval batches, K2
+         is not launched and K3 is (every clip's backward); the checkpoint
+         names are `checkpoint_name` of the
+         logged validation metrics; a fresh Trainer with auto_resume restores
+         the parameters, BN buffers, Adam state, applied count and step
+         bitwise and starts at epoch 2.
+     (c) Times: forward, backward and optimizer per step from CUDA events
+         (augment on), wall time per step, img/s and peak memory; K1 alone at
+         the step's shape; and MS-SSIM forward plus backward at batch 32 of
+         256x256x1 in both blur forms, with the form `_blur` picks.
+ 10. Curve training: the same for CurlCurveNet rw_t at 48/48/64 knots with
+     curve_reg_weight 1e-4, one epoch, K2's launch count.
 
 The last two lines before the final one are the kernels' JSON record and the
 card's `name, power.limit`; the final line is
@@ -52,9 +87,12 @@ from __future__ import annotations
 import concurrent.futures
 import copy
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -90,11 +128,27 @@ KNOT_STD = 0.2
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 
+# Training phases: the reference trainer's batch and crop, the synthetic
+# dataset's size, and the kernel-vs-plain step tolerances.
+TRAIN_BATCH, CROP = 32, 256
+TRAIN_PAIRS, VALID_PAIRS = 64, 32
+PAIR_H, PAIR_W = 320, 400
+STEP_LOSS_RTOL = 1e-4
+HEAD_GRAD_REL_L2 = 1e-3
+TIMED_STEPS = 5
+# The target's fixed tone curve (a gamma lift) as a 256-entry table.
+TONE_CURVE = np.round(255.0 * (np.arange(256) / 255.0) ** 0.7).astype(np.uint8)
+
 KERNEL_SOURCE = "curl_tpu_torch/csrc/trispace_kernel.cu"
 KERNEL_REPLACES = "curl_tpu/ops/pallas/trispace_kernel.py:70"
 CURVE_SOURCE = "curl_tpu_torch/csrc/curve_kernel.cu"
 CURVE_REPLACES = "curl_tpu/ops/pallas/curve_kernel.py:60"
 KERNELS = ("trispace_kernel", "curve_kernel")
+CLIP_SOURCE = "curl_tpu_torch/csrc/tie_clip_grad.cu"
+CLIP_REPLACES = ("none: jnp.clip's gradient, which XLA fuses (e.g. curl_tpu/ops/curves.py:69, "
+                 "the ramp clip)")
+# The largest clip of the training path: one curve's ramp stack.
+RAMPS = 15
 
 
 def log(msg: str) -> None:
@@ -523,6 +577,359 @@ def device_and_host_ms(fn, iters: int = 20) -> tuple[float, float]:
     return dev_ms, host_ms
 
 
+def synthetic_example(index: int) -> dict:
+    """Pair `index` of the synthetic dataset: a 320x400 u8 input, its tone
+    curve as the target, and a ~90%-ones mask, from default_rng((SEED, index))."""
+    rng = np.random.default_rng((SEED, index))
+    inp = rng.integers(0, 256, (PAIR_H, PAIR_W, 3), dtype=np.uint8)
+    mask = (rng.uniform(size=(PAIR_H, PAIR_W, 1)) < 0.9).astype(np.uint8)
+    return {"input_img": inp, "output_img": TONE_CURVE[inp], "mask": mask,
+            "name": f"{index}.png"}
+
+
+def write_dataset(root) -> None:
+    """The synthetic dataset as PNGs in the layout `scan_data_dir` reads,
+    with images_train.txt and images_valid.txt."""
+    from PIL import Image
+
+    dirs = {k: root / f"pairs_{k}" for k in ("input", "output", "mask")}
+    for d in dirs.values():
+        d.mkdir(parents=True)
+    for i in range(TRAIN_PAIRS + VALID_PAIRS):
+        ex = synthetic_example(i)
+        Image.fromarray(ex["input_img"]).save(dirs["input"] / ex["name"])
+        Image.fromarray(ex["output_img"]).save(dirs["output"] / ex["name"])
+        Image.fromarray(ex["mask"][..., 0] * 255).save(dirs["mask"] / ex["name"])
+    (root / "images_train.txt").write_text("\n".join(map(str, range(TRAIN_PAIRS))) + "\n")
+    (root / "images_valid.txt").write_text(
+        "\n".join(map(str, range(TRAIN_PAIRS, TRAIN_PAIRS + VALID_PAIRS))) + "\n")
+
+
+def synthetic_records():
+    """(train, valid) records of the synthetic dataset for the Loader route:
+    the key is the pair's index."""
+    from curl_tpu_torch.data.dataset import Record
+
+    recs = [Record(str(i), f"{i}.png", f"{i}.png", f"{i}.png")
+            for i in range(TRAIN_PAIRS + VALID_PAIRS)]
+    return recs[:TRAIN_PAIRS], recs[TRAIN_PAIRS:]
+
+
+def synthetic_loader_class():
+    """A Loader that synthesizes each example from its record's index
+    instead of decoding files (for a machine without PIL)."""
+    from curl_tpu_torch.data import pipeline
+
+    class SyntheticLoader(pipeline.Loader):
+        def _load_record(self, global_idx: int) -> dict:
+            return synthetic_example(int(self.records[global_idx].key))
+
+    return SyntheticLoader
+
+
+def training_batch(torch, dev):
+    """One u8 training batch of TRAIN_BATCH center crops of the synthetic
+    pairs, on the card."""
+    from curl_tpu_torch.data.dataset import crop_pair
+
+    crops = [crop_pair(synthetic_example(i), CROP, CROP) for i in range(TRAIN_BATCH)]
+    return {k: torch.from_numpy(np.stack([c[k] for c in crops])).to(dev)
+            for k in ("input_img", "output_img", "mask")}
+
+
+def last_linear(model):
+    import torch
+
+    return [m for m in model.backbone.classifier.modules() if isinstance(m, torch.nn.Linear)][-1]
+
+
+def check_train_step(cfg, impl_attr: str, batch, counters, dev) -> None:
+    """Phase 9a / 10a: one train step through the kernel and one through
+    the plain path from a copy with the same weights, augment off."""
+    import torch
+
+    from curl_tpu_torch.train import loop
+    from curl_tpu_torch.train import state as state_lib
+    from curl_tpu_torch.train import steps as steps_lib
+
+    kernel_model = loop.build_model(cfg, dev, torch.Generator().manual_seed(SEED))
+    plain_model = copy.deepcopy(kernel_model)
+    setattr(plain_model, impl_attr, "torch")
+    step = steps_lib.make_train_step(cfg.ssim_window_size, augment=False,
+                                     reg_weight=cfg.curve_reg_weight)
+    results = []
+    for model in (kernel_model, plain_model):
+        state = state_lib.TrainState(model, state_lib.make_optimizer(
+            model.parameters(), state_lib.onecycle_schedule(cfg.num_epoch, 2)))
+        for mod in counters.values():
+            mod.LAUNCHES = 0
+        loss = float(step(state, batch, torch.Generator(device=dev))["loss"])
+        launches = {name: mod.LAUNCHES for name, mod in counters.items()}
+        buffers = {k: v for k, v in model.state_dict().items()
+                   if k.endswith(("running_mean", "running_var", "num_batches_tracked"))}
+        results.append((loss, last_linear(model).weight.grad, buffers, launches))
+    (k_loss, k_grad, k_buf, k_n), (p_loss, p_grad, p_buf, p_n) = results
+    rel = float((k_grad - p_grad).norm() / p_grad.norm())
+    same_buffers = all(torch.equal(k_buf[k], p_buf[k]) for k in k_buf)
+    log(f"  one step, kernel {k_loss:.7f} vs plain {p_loss:.7f} (rel "
+        f"{abs(k_loss - p_loss) / abs(p_loss):.2e}); last-layer gradient relative L2 "
+        f"{rel:.2e}; {len(k_buf)} BN buffers equal: {same_buffers}; launches {k_n} / {p_n}")
+    if not (np.isfinite(k_loss) and abs(k_loss - p_loss) <= STEP_LOSS_RTOL * abs(p_loss)):
+        raise AssertionError("the kernel step's loss disagrees with the plain step's")
+    if rel > HEAD_GRAD_REL_L2 or not same_buffers:
+        raise AssertionError("the kernel step's gradient or BN buffers disagree")
+    if (p_n["K1"] + p_n["K2"] != 0 or sorted([k_n["K1"], k_n["K2"]]) != [0, 1]
+            or min(k_n["K3"], p_n["K3"]) == 0):
+        raise AssertionError(f"expected one forward kernel launch and K3 launches in both, "
+                             f"counted {k_n} and {p_n}")
+
+
+def train_and_resume(model_name: str, epochs: int, pil: bool, tmp, counters) -> dict:
+    """Phase 9b / 10b. Returns the launch counts of the training run."""
+    import torch
+
+    from curl_tpu_torch.cli import main as cli
+    from curl_tpu_torch.config import parse_config
+    from curl_tpu_torch.data.dataset import read_split_ids, scan_data_dir, select_records
+    from curl_tpu_torch.train import checkpoint as ckpt_lib
+    from curl_tpu_torch.train import loop
+
+    log_dir = tmp / f"log_{model_name}"
+    args = ["--model", model_name, "--num_epoch", str(epochs), "--valid_every", "1",
+            "--log_dirpath", str(log_dir), "--seed", str(SEED)]
+    data = tmp / "data"
+    if pil:
+        recs = scan_data_dir(data)
+        train_recs, valid_recs = (select_records(recs, read_split_ids(data / f"images_{s}.txt"))
+                                  for s in ("train", "valid"))
+    else:
+        train_recs, valid_recs = synthetic_records()
+    for mod in counters.values():
+        mod.LAUNCHES = 0
+    t0 = time.perf_counter()
+    if pil:
+        cli.main(["--training_img_dirpath", str(data)] + args)
+    else:
+        cfg = parse_config(args)
+        trainer = loop.Trainer(cfg, train_recs, valid_recs)
+        loader = synthetic_loader_class()
+        trainer.train_loader = loader(train_recs, batch_size=cfg.batch_size,
+                                      crop=(cfg.crop_h, cfg.crop_w), train=True, seed=cfg.seed,
+                                      num_threads=cfg.num_workers)
+        trainer.evaluator.loader = loader(valid_recs, batch_size=cfg.batch_size,
+                                          crop=(cfg.crop_h, cfg.crop_w), train=False,
+                                          num_threads=cfg.num_workers)
+        trainer.fit()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {name: mod.LAUNCHES for name, mod in counters.items()}
+
+    text = (log_dir / "curl.log").read_text()
+    losses = [float(line.split("train loss: ")[1].split()[0])
+              for line in text.splitlines() if "train loss: " in line]
+    evals = [line.split("loss_valid: ")[1].split() for line in text.splitlines()
+             if "loss_valid: " in line]
+    steps = epochs * TRAIN_PAIRS // TRAIN_BATCH
+    eval_batches = epochs * -(-VALID_PAIRS // TRAIN_BATCH)
+    log(f"  {epochs} epoch(s) in {seconds:.1f} s: train loss per epoch {losses}; eval "
+        f"{[' '.join(e) for e in evals]}; launches {launches} for {steps} steps and "
+        f"{eval_batches} eval batches")
+    if len(losses) != epochs or not np.isfinite(losses).all():
+        raise AssertionError(f"expected {epochs} finite epoch losses, got {losses}")
+    kernel = "K1" if model_name == "trispace" else "K2"
+    expect = {k: (steps + eval_batches if k == kernel else 0) for k in ("K1", "K2")}
+    if {k: launches[k] for k in expect} != expect or launches["K3"] == 0:
+        raise AssertionError(f"expected {expect} and K3 launches, got {launches}")
+
+    ckpt_dir = log_dir / "checkpoints"
+    names = [p.split("/")[-1] for p, _ in ckpt_lib.list_checkpoints(str(ckpt_dir))]
+    expect = [ckpt_lib.checkpoint_name(float(e[2]), float(e[0]), i + 1)
+              for i, e in enumerate(evals)]
+    log(f"  checkpoints {names}")
+    if names != expect:
+        raise AssertionError(f"checkpoint names {names}, expected {expect}")
+
+    fresh = loop.Trainer(parse_config(args + ["--auto_resume", "true"]), train_recs, valid_recs)
+    payload = torch.load(ckpt_dir / names[-1] / ckpt_lib.STATE_FILE, map_location=fresh.device,
+                         weights_only=True)
+    model_sd = fresh.model.state_dict()
+    opt_sd = fresh.state.optimizer.state_dict()
+    same = (all(torch.equal(model_sd[k], v) for k, v in payload["model"].items())
+            and torch.equal(opt_sd["count"], payload["optimizer"]["count"])
+            and all(torch.equal(opt_sd["adam"]["state"][i][n], v)
+                    for i, st in payload["optimizer"]["adam"]["state"].items()
+                    for n, v in st.items()))
+    log(f"  fresh Trainer with auto_resume: epoch {fresh.start_epoch}, step {fresh.state.step}, "
+        f"applied {int(opt_sd['count'])}; parameters, BN buffers and Adam state bitwise: {same}")
+    if not (same and fresh.start_epoch == epochs and fresh.state.step == steps == payload["step"]):
+        raise AssertionError("auto_resume did not restore the checkpoint bitwise")
+    return launches
+
+
+class StepSplit:
+    """While active, CUDA events mark each train step's start (`begin`),
+    the start and end of `loss.backward()` and the end of the optimizer
+    step, so a step splits into forward, backward and optimizer device
+    time."""
+
+    def __init__(self, torch, state):
+        self.torch, self.state = torch, state
+        self.marks: list[list] = []
+
+    def _mark(self):
+        ev = self.torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.marks[-1].append(ev)
+
+    def begin(self):
+        self.marks.append([])
+        self._mark()
+
+    def __enter__(self):
+        self.backward = self.torch.Tensor.backward
+        opt_step = self.state.optimizer.step
+
+        def backward(tensor, *args, **kwargs):
+            self._mark()
+            self.backward(tensor, *args, **kwargs)
+            self._mark()
+
+        def step():
+            opt_step()
+            self._mark()
+
+        self.torch.Tensor.backward = backward
+        self.state.optimizer.step = step
+        return self
+
+    def __exit__(self, *exc):
+        self.torch.Tensor.backward = self.backward
+        del self.state.optimizer.step
+
+    def split_ms(self) -> tuple[float, float, float]:
+        """Mean (forward, backward, optimizer) ms over the marked steps."""
+        self.marks[-1][-1].synchronize()
+        parts = np.array([[m[i].elapsed_time(m[i + 1]) for i in range(3)] for m in self.marks])
+        return tuple(float(x) for x in parts.mean(axis=0))
+
+
+def time_training(cfg, batch, dev) -> dict:
+    """Phase 9c / 10c: TIMED_STEPS train steps after two warm-up steps."""
+    import torch
+
+    from curl_tpu_torch.train import loop
+    from curl_tpu_torch.train import state as state_lib
+    from curl_tpu_torch.train import steps as steps_lib
+
+    model = loop.build_model(cfg, dev, torch.Generator().manual_seed(SEED))
+    state = state_lib.TrainState(model, state_lib.make_optimizer(
+        model.parameters(), state_lib.onecycle_schedule(cfg.num_epoch, 2)))
+    step = steps_lib.make_train_step(cfg.ssim_window_size, cfg.augment, cfg.curve_reg_weight)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    for _ in range(2):
+        step(state, batch, gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with StepSplit(torch, state) as split:
+        for _ in range(TIMED_STEPS):
+            split.begin()
+            loss = step(state, batch, gen)["loss"]
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / TIMED_STEPS * 1e3
+    fwd, bwd, opt = split.split_ms()
+    if not torch.isfinite(loss):
+        raise AssertionError("non-finite loss in the timed steps")
+    return {"forward_ms": fwd, "backward_ms": bwd, "optimizer_ms": opt, "wall_ms": wall_ms,
+            "img_per_s": TRAIN_BATCH / wall_ms * 1e3,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def time_blur_forms(rng, dev) -> tuple[str, dict]:
+    """MS-SSIM forward plus backward at batch 32 of 256x256x1 (the loss's L
+    channel) in both blur forms; their values must agree. Returns (the form
+    `_blur` picks, {form: ms})."""
+    import torch
+
+    from curl_tpu_torch.ops import ssim as ssim_ops
+
+    a = image(rng, TRAIN_BATCH, CROP, CROP, dev)[..., :1]
+    b = (a + 0.05 * torch.randn_like(a)).clamp(0, 1)
+    chosen = ssim_ops._blur_form(a)
+    saved = ssim_ops._blur_form
+    ms, values = {}, {}
+    try:
+        for form in ("matmul", "depthwise"):
+            ssim_ops._blur_form = lambda img, f=form: f
+
+            def fwd_bwd():
+                x = a.detach().requires_grad_()
+                ssim_ops.ms_ssim(x, b).sum().backward()
+
+            ms[form] = cuda_ms(fwd_bwd, 10)
+            with torch.no_grad():
+                values[form] = ssim_ops.ms_ssim(a, b)
+    finally:
+        ssim_ops._blur_form = saved
+    diff = float((values["matmul"] - values["depthwise"]).abs().max())
+    log(f"  MS-SSIM blur forms agree to {diff:.2e}")
+    if diff > 1e-5:
+        raise AssertionError(f"the MS-SSIM blur forms disagree by {diff}")
+    return chosen, ms
+
+
+def check_clip_kernel(clk, dev, rng) -> dict:
+    """Phase 9 (0). Returns K3's record: max abs error, ms and plain ms with
+    a permuted gradient, and the byte bound."""
+    import torch
+
+    def tie_heavy(shape):
+        x = np.round(rng.uniform(-0.5, 1.5, shape) * 4) / 4
+        x.reshape(-1)[::97] = np.nan
+        return torch.from_numpy(x.astype(np.float32)).to(dev)
+
+    shape = (TRAIN_BATCH, CROP, CROP, RAMPS)
+    x = tie_heavy(shape)
+    grads = {
+        "contiguous": torch.randn(shape, device=dev),
+        "permuted": torch.randn(TRAIN_BATCH, RAMPS, CROP, CROP, device=dev).permute(0, 2, 3, 1),
+        "expanded": torch.randn(TRAIN_BATCH, CROP, CROP, 1, device=dev).expand(shape),
+    }
+    cases = [(g, x, layout, torch.float32) for layout, g in grads.items()]
+    small = tie_heavy((4, 64, 64, RAMPS))
+    g_small = torch.randn(small.shape, device=dev)
+    cases += [(g_small.to(dt), small.to(dt), "contiguous", dt)
+              for dt in (torch.bfloat16, torch.float64)]
+    err = 0.0
+    for g, xs, layout, dt in cases:
+        for lo, hi in ((0.0, 1.0), (1e-4, None)):
+            got = clk.tie_clip_grad(g, xs, lo, hi)
+            want = clk.tie_clip_grad_reference(g, xs, lo, hi)
+            if not torch.equal(got, want):
+                raise AssertionError(f"K3 differs from its plain version ({layout} {dt}, "
+                                     f"bounds {lo}, {hi})")
+            err = max(err, float((got.double() - want.double()).abs().max()))
+    log(f"  K3 bitwise its plain version: {len(cases) * 2} cases (gradient contiguous, permuted "
+        f"and expanded at {shape} fp32; bf16 and fp64 at {tuple(small.shape)}; clip and floor)")
+    g = grads["permuted"]
+    ms = cuda_ms(lambda: clk.tie_clip_grad(g, x, 0.0, 1.0), 20)
+    plain_ms = cuda_ms(lambda: clk.tie_clip_grad_reference(g, x, 0.0, 1.0), 20)
+    contiguous_ms = cuda_ms(lambda: clk.tie_clip_grad(grads["contiguous"], x, 0.0, 1.0), 20)
+    # Bytes: g and x read once, the gradient written once, fp32; ~6 compares
+    # and selects a value are far below the byte time.
+    bound_ms = 3 * 4 * x.numel() / PEAK_BYTES_PER_S * 1e3
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "contiguous_ms": contiguous_ms,
+            "bound_ms": bound_ms}
+
+
+def pil_available() -> bool:
+    try:
+        import PIL  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
 def main() -> int:
     try:
         import torch
@@ -539,6 +946,7 @@ def main() -> int:
         from curl_tpu_torch.models.trispace import TriSpacePolyNet
         from curl_tpu_torch.ops import wire
         from curl_tpu_torch.ops.kernels import build
+        from curl_tpu_torch.ops.kernels import clip_kernel as clk
         from curl_tpu_torch.ops.kernels import curve_kernel as ck
         from curl_tpu_torch.ops.kernels import trispace_kernel as tk
     except ImportError as exc:
@@ -562,6 +970,12 @@ def main() -> int:
         for path in pool.map(build.build, KERNELS):
             log(f"  built {path}")
     log(f"  nvcc builds {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    probe = torch.zeros(8, device=dev)
+    clk.tie_clip_grad(probe, probe, 0.0, 1.0)
+    torch.cuda.synchronize()
+    log(f"  K3 ({CLIP_SOURCE}) compiled by NVRTC through torch.cuda.jiterator at its first "
+        f"launch: {time.perf_counter() - t0:.1f} s")
     for name in KERNELS:
         for line in build.ptxas_report(name).splitlines():
             if ("registers" in line or "spill" in line or "Compiling entry" in line
@@ -739,6 +1153,74 @@ def main() -> int:
         f"{c8_bound_ms:.3f} ms ({100 * c8_bound_ms / c8_ms:.1f}%)",
     ):
         log(f"{line}  [{card}]")
+    del img, cs, c_img, c_mask, knots, enh, plain_enh, curve_enh, model, curve_model, batches
+    del curve_batches
+    torch.cuda.empty_cache()
+
+    from curl_tpu_torch.config import Config, apply_precision
+
+    apply_precision(Config.matmul_precision)
+    pil = pil_available()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    try:
+        if pil:
+            write_dataset(tmp / "data")
+        log(f"training data: {TRAIN_PAIRS} + {VALID_PAIRS} synthetic pairs of {PAIR_H}x{PAIR_W} u8, "
+            + ("written as PNGs, trained through cli.main (PIL imports)" if pil else
+               "synthesized by a Loader subclass, trained through Trainer (no PIL)"))
+        batch = training_batch(torch, dev)
+        train_counters = dict(counters, K3=clk)
+        train_times = {}
+        for phase, name, impl_attr, epochs in ((9, "trispace", "residual_impl", 2),
+                                               (10, "curve", "curve_impl", 1)):
+            cfg = Config(model=name)
+            family = "TriSpacePolyNet" if name == "trispace" else "CurlCurveNet 48/48/64 knots"
+            log(f"phase {phase}: {family} training, rw_t, batch {cfg.batch_size} of "
+                f"{cfg.crop_h}x{cfg.crop_w}, augment {cfg.augment}")
+            if phase == 9:
+                log("  (0) K3 against its plain version")
+                clip_record = check_clip_kernel(clk, dev, rng)
+            log("  (a) kernel step against the plain step")
+            check_train_step(cfg, impl_attr, batch, train_counters, dev)
+            log(f"  (b) {epochs} epoch(s) on the synthetic dataset, then auto_resume")
+            train_launches = train_and_resume(name, epochs, pil, tmp, train_counters)
+            log("  (c) times")
+            t = time_training(cfg, batch, dev)
+            train_times[name] = (t, train_launches)
+            log(f"  {family} rw_t train step, batch {TRAIN_BATCH} of {CROP}x{CROP}, augment on: "
+                f"forward {t['forward_ms']:.3f} ms, backward {t['backward_ms']:.3f} ms, "
+                f"optimizer {t['optimizer_ms']:.3f} ms (device events); wall "
+                f"{t['wall_ms']:.3f} ms/step, {t['img_per_s']:.2f} img/s; peak "
+                f"{t['peak_gib']:.2f} GiB  [{card}]")
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    t_img = image(rng, TRAIN_BATCH, CROP, CROP, dev)
+    t_cs = coefficients(rng, TRAIN_BATCH, 126, dev)
+    k_train_ms = cuda_ms(lambda: tk.fused_trispace_residual(t_img, *t_cs), 20)
+    t_curve = curve_inputs(rng, TRAIN_BATCH, CROP, CROP, dev, std=KNOT_STD)
+    c_train_ms = cuda_ms(lambda: ck.fused_curve_enhance(*t_curve), 20)
+    chosen, blur_ms = time_blur_forms(rng, dev)
+    for line in (
+        f"  K1 alone at the training shape (fp32 residual, batch {TRAIN_BATCH} of {CROP}x{CROP}): "
+        f"{k_train_ms:.3f} ms",
+        f"  K2 alone at the training shape (fp32 with mask, 16 knots per curve): "
+        f"{c_train_ms:.3f} ms",
+        f"  MS-SSIM forward + backward, batch {TRAIN_BATCH} of {CROP}x{CROP}x1: matmul blur "
+        f"{blur_ms['matmul']:.3f} ms, depthwise blur {blur_ms['depthwise']:.3f} ms; "
+        f"_blur picks {chosen}",
+        f"  K3 at one curve's ramp stack ({TRAIN_BATCH}x{CROP}x{CROP}x{RAMPS} fp32): gradient "
+        f"permuted {clip_record['ms']:.3f} ms, contiguous {clip_record['contiguous_ms']:.3f} ms; "
+        f"plain version (nine torch ops) {clip_record['plain_ms']:.3f} ms; bound "
+        f"{clip_record['bound_ms']:.3f} ms (12 B per value at 3.35 TB/s)",
+    ):
+        log(f"{line}  [{card}]")
+    for name in ("trispace", "curve"):
+        t, n = train_times[name]
+        log(f"  {name} training launches: {n}")
+    # K3 runs only on the training paths: its launches are theirs.
+    clip_launches = sum(n["K3"] for _, n in train_times.values())
 
     record = {"kernels": [
         {
@@ -755,6 +1237,8 @@ def main() -> int:
             "bound_ms_u8": bound8_ms,
             "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
             "library_ms": None,
+            "train_launches": train_times["trispace"][1]["K1"],
+            "train_ms": k_train_ms,
         },
         {
             "name": "fused_curve_enhance",
@@ -770,6 +1254,23 @@ def main() -> int:
             "bound_ms_u8": c8_bound_ms,
             "bound_by": "operations" if c_flop_ms >= c_byte_ms else "bytes",
             "library_ms": None,
+            "train_launches": train_times["curve"][1]["K2"],
+            "train_ms": c_train_ms,
+        },
+        {
+            "name": "tie_clip_grad",
+            "route": "cuda",
+            "source": CLIP_SOURCE,
+            "replaces": CLIP_REPLACES,
+            "launches": clip_launches,
+            "max_abs_err": clip_record["max_abs_err"],
+            "ms": clip_record["ms"],
+            "plain_ms": clip_record["plain_ms"],
+            "bound_ms": clip_record["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": None,
+            "train_launches": clip_launches,
+            "train_ms": clip_record["ms"],
         },
     ]}
     print(json.dumps(record))

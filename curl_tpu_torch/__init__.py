@@ -5,7 +5,10 @@ Entry points run on the GPU unless the caller passes `device="cpu"`. The
 per-pixel tri-space apply of `TriSpacePolyNet` and the knot-curve pass of
 `CurlCurveNet` are hand-written CUDA kernels (`csrc/trispace_kernel.cu`,
 `csrc/curve_kernel.cu`, built with nvcc at first launch), each with a plain
-torch version beside it, which CPU tensors take.
+torch version beside it, which CPU tensors take. Training (`train/`,
+`python -m curl_tpu_torch.cli.main`) runs through the kernels'
+autograd.Functions: kernel forward, backward by autograd through the plain
+version.
 """
 
 from curl_tpu_torch.device import resolve_device

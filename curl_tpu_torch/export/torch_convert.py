@@ -6,11 +6,11 @@ dicts of numpy arrays and returns the torch state dict with timm key names:
   * of `TriSpacePolyNet` (flax names `backbone_net/stage{s}_block{b}/conv_pw`,
     `head/fc{i}`, ...), key for key and value for value what the JAX
     package's `export/torch_convert.py::export_trispace_state_dict` writes;
-  * of `CurlCurveNet` (flax names `backbone/...` and `classifier`), with the
-    classifier at `backbone.classifier.{weight,bias}`.
+  * of `CurlCurveNet` and of `PolyRegNet` (flax names `backbone/...` and
+    `classifier`), with the classifier at `backbone.classifier.{weight,bias}`.
 
-The flax subtree name tells the two apart: `backbone_net` for the first,
-`backbone` for the second.
+The flax subtree name tells the two layouts apart: `backbone_net` for the
+first, `backbone` for the others.
 
 Layout transforms (flax -> torch):
   conv      (kh, kw, I, O) -> (O, I, kh, kw)
@@ -48,8 +48,8 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> dict[str, np.ndarray]
 def state_dict_from_jax(
     variables_np: Mapping[str, Any], backbone_cfg: bb.BackboneCfg
 ) -> dict[str, torch.Tensor]:
-    """flax `{'params', 'batch_stats'}` of a TriSpacePolyNet or a
-    CurlCurveNet (numpy leaves) -> that model's `state_dict()` in the port;
+    """flax `{'params', 'batch_stats'}` of a TriSpacePolyNet, a CurlCurveNet
+    or a PolyRegNet (numpy leaves) -> that model's `state_dict()` in the port;
     raises KeyError naming the first missing flax entry."""
     params = _flatten(variables_np["params"])
     stats = _flatten(variables_np.get("batch_stats", {}))

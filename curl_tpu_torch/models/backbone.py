@@ -11,7 +11,9 @@ with the stage configs of timm's `efficientnetv2_rw_t` and `_rw_s` and a
 tiny config for tests. Submodules carry timm's key names (`conv_stem`,
 `bn1`, `blocks.{stage}.{block}.conv_pw`, `se.conv_reduce`, `conv_head`,
 `bn2`, ...), so a timm or reference state dict loads as it is. Convs use
-symmetric k//2 padding and BN eps 1e-5 (momentum 0.1).
+symmetric k//2 padding and BN eps 1e-5 (momentum 0.1). BatchNorm updates its
+running variance in training mode with the biased batch variance, as flax's
+`BatchNorm` does, where torch's own uses the unbiased one.
 
 The public layout is NHWC, as in the JAX package; `EfficientNetV2.forward`
 permutes to NCHW for the convolutions.
@@ -102,8 +104,37 @@ def _conv(cin: int, cout: int, k: int, stride: int = 1, groups: int = 1,
     return nn.Conv2d(cin, cout, k, stride=stride, padding=k // 2, groups=groups, bias=bias)
 
 
-def _bn(ch: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(ch, eps=_BN_EPS, momentum=_BN_MOMENTUM)
+class BatchNorm2d(nn.BatchNorm2d):
+    """`nn.BatchNorm2d` whose training forward updates the running variance
+    with the *biased* batch variance, as flax's `BatchNorm` does
+    (ra_var = m * ra_var + (1 - m) * var); torch's own update scales it by
+    n / (n - 1), which is a factor of 2 on a 1x1 map at batch 2.
+    Normalization, eval mode and the state dict keys are torch's."""
+
+    def forward(self, x: Tensor) -> Tensor:
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+            self.num_batches_tracked.add_(1)
+            m = (1.0 / float(self.num_batches_tracked) if self.momentum is None
+                 else self.momentum)
+            self.running_mean.lerp_(mean.to(self.running_mean.dtype), m)
+            self.running_var.lerp_(var.to(self.running_var.dtype), m)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+
+def _bn(ch: int) -> BatchNorm2d:
+    return BatchNorm2d(ch, eps=_BN_EPS, momentum=_BN_MOMENTUM)
+
+
+def fp32_convs():
+    """cuDNN convolutions without TF32 while the block runs. It covers the
+    forward only: autograd runs the backward after the block, under the
+    run's own setting, which `config.apply_precision` sets."""
+    cudnn = torch.backends.cudnn
+    return cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                       deterministic=cudnn.deterministic, allow_tf32=False)
 
 
 class SqueezeExcite(nn.Module):

@@ -126,11 +126,10 @@ class CurlCurveNet(nn.Module):
 
     def predict_knots(self, img: Tensor) -> Tensor:
         """Backbone and classifier over the *unmasked* image -> (B, total)
-        knot parameters. Convolutions run without TF32; matmul TF32 stays at
-        torch's default, off."""
-        cudnn = torch.backends.cudnn
-        with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
-                         deterministic=cudnn.deterministic, allow_tf32=False):
+        knot parameters. Forward convolutions run without TF32; matmul TF32
+        stays at torch's default, off. The backward follows the run's
+        setting (`config.apply_precision`)."""
+        with bb.fp32_convs():
             return self.backbone(img)
 
     def forward(

@@ -121,13 +121,12 @@ class TriSpacePolyNet(nn.Module):
 
     def generate_coefficients(self, img: Tensor, mask: Tensor) -> tuple[Tensor, Tensor, Tensor]:
         """Backbone and head over the masked image -> (R, L, H) coefficient
-        stacks, each (B, 3, num_coeffs) fp32. Convolutions run without TF32
-        (the degree-4 polynomial amplifies coefficient error); matmul TF32
-        stays at torch's default, off."""
+        stacks, each (B, 3, num_coeffs) fp32. Forward convolutions run
+        without TF32 (the degree-4 polynomial amplifies coefficient error);
+        matmul TF32 stays at torch's default, off. The backward follows the
+        run's setting (`config.apply_precision`)."""
         x = img * mask.to(img.dtype)
-        cudnn = torch.backends.cudnn
-        with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
-                         deterministic=cudnn.deterministic, allow_tf32=False):
+        with bb.fp32_convs():
             coeffs = self.backbone(x)
         coeffs = coeffs.float().reshape(
             img.shape[0], self.num_spaces, self.num_channels, self.num_coeffs
@@ -155,3 +154,49 @@ class TriSpacePolyNet(nn.Module):
         if return_residual:
             return residual
         return enhance.generate_image(apply_img, residual)
+
+
+class PolyRegNet(nn.Module):
+    """The secondary single-space model: backbone -> linear -> one degree-D
+    polynomial per channel in the image's own channels; output =
+    sigmoid(poly(img)) * mask. The backbone sees the unmasked image, and the
+    classifier sits at `backbone.classifier` (timm's key names).
+
+    Args:
+      polynomial_order: total degree of the per-channel polynomial.
+      backbone: a BackboneCfg or config name.
+      device: where the module lives; None means `cuda`, and raises when
+        CUDA is absent.
+      generator: when given, every weight is drawn from it
+        (`backbone.init_weights`) instead of torch's global RNG.
+    """
+
+    num_channels = 3
+
+    def __init__(
+        self,
+        polynomial_order: int = 4,
+        backbone: Union[str, bb.BackboneCfg] = "efficientnetv2_rw_s",
+        device: DeviceLike = None,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        device = resolve_device(device)
+        self.polynomial_order = polynomial_order
+        self.num_coeffs = poly.num_monomials(polynomial_order, self.num_channels)
+        cfg = _resolve_cfg(backbone)
+        self.backbone = bb.EfficientNetV2(
+            cfg, classifier=nn.Linear(cfg.num_features, self.num_channels * self.num_coeffs)
+        )
+        if generator is not None:
+            bb.init_weights(self, generator)
+        self.to(device)
+
+    def forward(self, img: Tensor, mask: Tensor) -> Tensor:
+        with bb.fp32_convs():
+            coeffs = self.backbone(img)
+        coeffs = coeffs.float().reshape(img.shape[0], self.num_channels, self.num_coeffs)
+        out = torch.sigmoid(poly.poly_apply(
+            img, coeffs, degree=self.polynomial_order, num_out=self.num_channels,
+        ))
+        return out * mask.to(out.dtype)

@@ -14,6 +14,8 @@ Bounds go through `clip` and `floor_at`, the forms of `jnp.clip` and
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import Tensor
 
@@ -35,19 +37,39 @@ EPS = 6.0 / 29.0
 RECIP_TINY = 1e-10
 
 
-def _bound(x: Tensor, value: float) -> Tensor:
-    return torch.full((), value, dtype=x.dtype, device=x.device)
+class _TieClip(torch.autograd.Function):
+    """One clamp pass forward; the backward saves only `x` and passes
+    g * (1 inside, 1/2 at a bound, 0 outside), which is what the two-pass
+    `minimum(maximum(x, lo), hi)` passes (NaN inside, as there), in one
+    kernel on the card (`ops/kernels/clip_kernel.py`). `hi=None` bounds
+    below only."""
+
+    @staticmethod
+    def forward(ctx, x: Tensor, lo: float, hi: Optional[float]) -> Tensor:
+        ctx.save_for_backward(x)
+        ctx.bounds = (lo, hi)
+        return torch.clamp_min(x, lo) if hi is None else torch.clamp(x, lo, hi)
+
+    @staticmethod
+    def backward(ctx, g: Tensor):
+        # Imported here: the kernels package imports this module.
+        from curl_tpu_torch.ops.kernels.clip_kernel import tie_clip_grad
+
+        (x,) = ctx.saved_tensors
+        return tie_clip_grad(g, x, *ctx.bounds), None, None
 
 
 def floor_at(x: Tensor, lo: float) -> Tensor:
     """max(x, lo) with `jnp.maximum`'s gradient: half of it at x == lo."""
-    return torch.maximum(x, _bound(x, lo))
+    return _TieClip.apply(x, lo, None)
 
 
 def clip(x: Tensor, lo: float, hi: float) -> Tensor:
-    """min(max(x, lo), hi), as `jnp.clip` computes it, so that half of the
-    gradient passes at a bound."""
-    return torch.minimum(torch.maximum(x, _bound(x, lo)), _bound(x, hi))
+    """min(max(x, lo), hi) with `jnp.clip`'s gradient: half of it at a
+    bound. Needs lo < hi."""
+    if not lo < hi:
+        raise ValueError(f"clip needs lo < hi; got {lo}, {hi}")
+    return _TieClip.apply(x, lo, hi)
 
 
 def _mix(v0, v1, v2, m):

@@ -23,10 +23,13 @@ repeat on every run, on one NVIDIA GPU:
    kernel's autograd.Function (kernel forward, backward by autograd through
    the plain version, to the coefficients or the knots) at the reference
    trainer's default batch of 32 crops of 256x256 (K2 at the curve model's
-   48/48/64 knots). Each is timed with the port's bounds (`clip`,
-   `floor_at`: `jnp.clip`'s gradient at ties) and with `torch.clamp` in
-   their place, in turns; the forward values must be equal, and the step's
-   peak device memory is printed.
+   48/48/64 knots). Each is timed in turns with three forms of the bounds
+   wherever the plain versions call `clip` and `floor_at`: the port's (one
+   clamp pass forward; backward, `jnp.clip`'s half gradient at a tie in one
+   K3 launch), the two-pass `minimum(maximum(x, lo), hi)` they replaced
+   (the same gradient), and `torch.clamp` (the whole gradient at a tie).
+   The forward values must be equal, and each step's peak device memory is
+   printed.
 
 Launches made here are not main-path launches; the kernels' counters are
 left as they were. Without CUDA it exits non-zero.
@@ -206,22 +209,31 @@ def sass_histogram(lib: Path, fragment: str) -> collections.Counter:
     return counts
 
 
-def _clamp_clip(x, lo, hi):
-    return torch.clamp(x, lo, hi)
+def _bound(x, value):
+    return torch.full((), value, dtype=x.dtype, device=x.device)
 
 
-def _clamp_floor(x, lo):
-    return torch.clamp(x, min=lo)
+# (clip, floor) of each form that stands in for the port's `clip` and
+# `floor_at`.
+BOUND_FORMS = {
+    "two-pass": (lambda x, lo, hi: torch.minimum(torch.maximum(x, _bound(x, lo)), _bound(x, hi)),
+                 lambda x, lo: torch.maximum(x, _bound(x, lo))),
+    "clamp": (lambda x, lo, hi: torch.clamp(x, lo, hi), lambda x, lo: torch.clamp(x, min=lo)),
+}
+ARMS = ("one-pass", "two-pass", "clamp")
 
 
 @contextlib.contextmanager
-def clamp_bounds():
-    """`torch.clamp` in place of the port's `clip` and `floor_at` (one pass
-    each, the whole gradient at a tie), wherever the plain versions call
-    them."""
-    targets = [(cp, "clip", _clamp_clip), (cp, "floor_at", _clamp_floor),
-               (curves, "clip", _clamp_clip), (ck, "clip", _clamp_clip),
-               (curl_curve, "clip", _clamp_clip)]
+def bounds(form: str, forms: dict = BOUND_FORMS):
+    """`form`'s clip and floor (from `forms`) in place of the port's `clip`
+    and `floor_at` wherever the plain versions call them ("one-pass": the
+    port's own)."""
+    if form == "one-pass":
+        yield
+        return
+    clip, floor = forms[form]
+    targets = [(cp, "clip", clip), (cp, "floor_at", floor), (curves, "clip", clip),
+               (ck, "clip", clip), (curl_curve, "clip", clip)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in targets]
     for mod, name, fn in targets:
         setattr(mod, name, fn)
@@ -232,12 +244,24 @@ def clamp_bounds():
             setattr(mod, name, fn)
 
 
-def bounds_in_turns(fn, iters: int, warmup: int = 1) -> tuple[list[float], list[float]]:
-    """ms of `fn` with the port's bounds and with torch.clamp, in turns."""
-    def clamped():
-        with clamp_bounds():
-            fn()
-    return in_turns(fn, clamped, iters, warmup)
+def bounds_in_turns(fn, iters: int, warmup: int = 1) -> dict[str, list[float]]:
+    """ms of `fn` under each form of the bounds, in turns one-pass,
+    two-pass, clamp, clamp, two-pass, one-pass."""
+    def under(form):
+        def run():
+            with bounds(form):
+                fn()
+        return run
+
+    times: dict[str, list[float]] = {form: [] for form in ARMS}
+    for form in ARMS + ARMS[::-1]:
+        times[form].append(cuda_ms(under(form), iters, warmup))
+    return times
+
+
+def arm_times(times: dict[str, list[float]]) -> str:
+    return "; ".join(f"{form} {' / '.join(f'{t:.3f}' for t in ts)} ms"
+                     for form, ts in times.items())
 
 
 def peak_gib(fn) -> float:
@@ -270,14 +294,13 @@ def plain_costs(card: str, rng) -> None:
     for what, fn in forwards.items():
         with torch.no_grad():
             a = fn()
-            with clamp_bounds():
-                b = fn()
-            if not torch.equal(a, b):
-                raise AssertionError(f"{what}: clip and torch.clamp give different values")
-            del a, b
-            port, clamp = bounds_in_turns(fn, 3)
-        log(f"{what}: clip/floor_at {port[0]:.3f} / {port[1]:.3f} ms, torch.clamp "
-            f"{clamp[0]:.3f} / {clamp[1]:.3f} ms  [{card}]")
+            for form in ARMS[1:]:
+                with bounds(form):
+                    if not torch.equal(a, fn()):
+                        raise AssertionError(f"{what}: the {form} bounds give other values")
+            del a
+            times = bounds_in_turns(fn, 3)
+        log(f"{what}: {arm_times(times)}  [{card}]")
     del img, cs, c_img, c_mask, knots
 
     t_img = torch.from_numpy(
@@ -305,13 +328,13 @@ def plain_costs(card: str, rng) -> None:
     for what, (step, forward) in steps.items():
         with torch.no_grad():
             fwd_ms = cuda_ms(forward, ITERS)
-        port, clamp = bounds_in_turns(step, 3)
-        gib = peak_gib(step)
-        with clamp_bounds():
-            clamp_gib = peak_gib(step)
-        log(f"{what}: kernel forward alone {fwd_ms:.3f} ms; step with clip/floor_at "
-            f"{port[0]:.3f} / {port[1]:.3f} ms (peak {gib:.2f} GiB), with torch.clamp "
-            f"{clamp[0]:.3f} / {clamp[1]:.3f} ms (peak {clamp_gib:.2f} GiB)  [{card}]")
+        times = bounds_in_turns(step, 3)
+        peaks = []
+        for form in ARMS:
+            with bounds(form):
+                peaks.append(f"{form} {peak_gib(step):.2f} GiB")
+        log(f"{what}: kernel forward alone {fwd_ms:.3f} ms; step {arm_times(times)}; peak "
+            f"{', '.join(peaks)}  [{card}]")
 
 
 def main() -> int:

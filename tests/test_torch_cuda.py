@@ -311,3 +311,118 @@ def test_curve_enhancer_cuda_matches_cpu(cuda):
     assert ck.LAUNCHES == before + 1 and gpu.device.type == "cuda"
     diff = (gpu.cpu().int() - cpu.int()).abs()
     assert int(diff.max()) <= 1 and float((diff == 0).float().mean()) >= 0.999
+
+
+def _train_step_pair(model_cls, impl_attr, seed=0):
+    """One train step (augment off) of a tiny model through the kernel and,
+    from a copy with the same weights, through the plain path, on the same
+    u8 batch. Returns (losses, last-layer gradients, BN buffers, launches)."""
+    import copy
+
+    from curl_tpu_torch.models import backbone as bb
+    from curl_tpu_torch.train import state as state_lib
+    from curl_tpu_torch.train import steps as steps_lib
+
+    rng = np.random.default_rng(seed)
+    batch = {
+        "input_img": torch.from_numpy(rng.integers(0, 256, (4, 64, 64, 3), dtype=np.uint8)),
+        "output_img": torch.from_numpy(rng.integers(0, 256, (4, 64, 64, 3), dtype=np.uint8)),
+        "mask": torch.from_numpy((rng.uniform(size=(4, 64, 64, 1)) < 0.9).astype(np.uint8)),
+    }
+    batch = {k: v.cuda() for k, v in batch.items()}
+    kernel_model = model_cls(backbone=bb.TINY, device="cuda",
+                             generator=torch.Generator().manual_seed(seed))
+    plain_model = copy.deepcopy(kernel_model)
+    setattr(plain_model, impl_attr, "torch")
+    step = steps_lib.make_train_step(augment=False)
+    out = []
+    for model in (kernel_model, plain_model):
+        opt = state_lib.make_optimizer(model.parameters(), state_lib.onecycle_schedule(10, 1))
+        state = state_lib.TrainState(model, opt)
+        tk.LAUNCHES = ck.LAUNCHES = 0
+        loss = step(state, batch, torch.Generator(device="cuda"))["loss"]
+        torch.cuda.synchronize()
+        head = [p for p in model.parameters() if p.grad is not None][-2]
+        buffers = {k: v.clone() for k, v in model.state_dict().items() if "running" in k}
+        out.append((float(loss), head.grad.clone(), buffers, (tk.LAUNCHES, ck.LAUNCHES)))
+    return out
+
+
+@pytest.mark.parametrize("kind", ["trispace", "curve"])
+def test_training_step_kernel_matches_plain(cuda, kind):
+    from curl_tpu_torch.models import CurlCurveNet, TriSpacePolyNet
+
+    if kind == "trispace":
+        (kl, kg, kb, kn), (pl, pg, pb, pn) = _train_step_pair(TriSpacePolyNet, "residual_impl")
+        assert kn == (1, 0) and pn == (0, 0)
+    else:
+        (kl, kg, kb, kn), (pl, pg, pb, pn) = _train_step_pair(CurlCurveNet, "curve_impl")
+        assert kn == (0, 1) and pn == (0, 0)
+    assert np.isfinite(kl) and abs(kl - pl) <= 1e-4 * abs(pl)
+    rel = float((kg - pg).norm() / pg.norm())
+    assert rel <= 1e-3, rel
+    for k in kb:
+        assert torch.equal(kb[k], pb[k]), k
+
+
+@pytest.mark.parametrize("precision", ["high", "default"])
+def test_tf32_follows_precision_in_the_backward(cuda, precision):
+    """Autograd runs the conv backward after `fp32_convs` has exited, so
+    the run's setting governs it: off under "high" (and "highest")."""
+    from curl_tpu_torch.config import apply_precision
+    from curl_tpu_torch.models import TriSpacePolyNet
+    from curl_tpu_torch.models import backbone as bb
+
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    try:
+        apply_precision(precision)
+        model = TriSpacePolyNet(backbone=bb.TINY, device="cuda",
+                                generator=torch.Generator().manual_seed(0)).train()
+        seen = []
+        for m in model.modules():
+            if isinstance(m, torch.nn.Conv2d):
+                m.register_full_backward_hook(lambda *_: seen.append(
+                    (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)))
+        img = torch.rand(2, 32, 32, 3, device="cuda", requires_grad=True)
+        model(img, torch.ones(2, 32, 32, 1, device="cuda")).sum().backward()
+        torch.cuda.synchronize()
+        allow = precision == "default"
+        assert seen and all(s == (allow, allow) for s in seen), seen
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["contiguous", "permuted", "expanded"])
+def test_clip_kernel_bitwise_its_plain_version(cuda, dtype, layout):
+    """K3 gives the plain version's gradient bit for bit, with many values
+    exactly at the bounds, NaN inputs, and the gradient in the layouts
+    autograd hands over."""
+    from curl_tpu_torch.ops.kernels import clip_kernel
+
+    rng = np.random.default_rng(3)
+    shape = (2, 24, 40, 15)
+    x = np.round(rng.uniform(-0.5, 1.5, shape) * 4) / 4
+    x.reshape(-1)[::97] = np.nan
+    x = torch.from_numpy(x).to(device=cuda, dtype=dtype)
+    g = {
+        "contiguous": torch.randn(shape, device=cuda),
+        "permuted": torch.randn(2, 15, 24, 40, device=cuda).permute(0, 2, 3, 1),
+        "expanded": torch.randn(2, 24, 40, 1, device=cuda).expand(shape),
+    }[layout].to(dtype)
+    for lo, hi in ((0.0, 1.0), (1e-4, None), (0.0, 60.0)):
+        before = clip_kernel.LAUNCHES
+        got = clip_kernel.tie_clip_grad(g, x, lo, hi)
+        assert clip_kernel.LAUNCHES == before + 1
+        assert torch.equal(got, clip_kernel.tie_clip_grad_reference(g, x, lo, hi))
+
+
+def test_clip_backward_launches_the_kernel(cuda):
+    from curl_tpu_torch.ops import color_planes as cp
+    from curl_tpu_torch.ops.kernels import clip_kernel
+
+    x = torch.tensor([-1.0, 0.0, 0.5, 1.0, 2.0], device=cuda, requires_grad=True)
+    before = clip_kernel.LAUNCHES
+    cp.clip(x, 0.0, 1.0).sum().backward()
+    assert clip_kernel.LAUNCHES == before + 1
+    assert x.grad.tolist() == [0.0, 0.5, 1.0, 0.5, 0.0]

@@ -14,6 +14,13 @@ PACKAGE = REPO / "curl_tpu_torch"
 
 MODULES = [
     "curl_tpu_torch",
+    "curl_tpu_torch.cli",
+    "curl_tpu_torch.cli.main",
+    "curl_tpu_torch.config",
+    "curl_tpu_torch.data",
+    "curl_tpu_torch.data.augment",
+    "curl_tpu_torch.data.dataset",
+    "curl_tpu_torch.data.pipeline",
     "curl_tpu_torch.device",
     "curl_tpu_torch.ops",
     "curl_tpu_torch.ops.color",
@@ -22,14 +29,18 @@ MODULES = [
     "curl_tpu_torch.ops.curves",
     "curl_tpu_torch.ops.enhance",
     "curl_tpu_torch.ops.poly",
+    "curl_tpu_torch.ops.ssim",
     "curl_tpu_torch.ops.wire",
     "curl_tpu_torch.ops.kernels",
     "curl_tpu_torch.ops.kernels.build",
+    "curl_tpu_torch.ops.kernels.clip_kernel",
     "curl_tpu_torch.ops.kernels.curve_kernel",
     "curl_tpu_torch.ops.kernels.trispace_kernel",
     "curl_tpu_torch.models",
     "curl_tpu_torch.models.backbone",
     "curl_tpu_torch.models.curl_curve",
+    "curl_tpu_torch.models.losses",
+    "curl_tpu_torch.models.metrics",
     "curl_tpu_torch.models.trispace",
     "curl_tpu_torch.export",
     "curl_tpu_torch.export.torch_convert",
@@ -37,6 +48,15 @@ MODULES = [
     "curl_tpu_torch.infer.engine",
     "curl_tpu_torch.tools",
     "curl_tpu_torch.tools.kernel_probe",
+    "curl_tpu_torch.tools.train_profile",
+    "curl_tpu_torch.train",
+    "curl_tpu_torch.train.checkpoint",
+    "curl_tpu_torch.train.loop",
+    "curl_tpu_torch.train.state",
+    "curl_tpu_torch.train.steps",
+    "curl_tpu_torch.utils",
+    "curl_tpu_torch.utils.imageio",
+    "curl_tpu_torch.utils.profiling",
 ]
 
 
@@ -46,7 +66,8 @@ def test_importing_the_port_loads_no_jax():
         f"for name in {MODULES!r}:\n"
         "    importlib.import_module(name)\n"
         "bad = sorted(k for k in sys.modules\n"
-        "             if k.split('.')[0] in ('jax', 'jaxlib', 'flax') or k == 'curl_tpu'\n"
+        "             if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'orbax')\n"
+        "             or k == 'curl_tpu'\n"
         "             or k.startswith('curl_tpu.'))\n"
         "print(','.join(bad))\n"
     )

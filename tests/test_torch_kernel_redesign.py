@@ -248,9 +248,10 @@ def test_probe_rewrites_the_built_k1_constants():
 
 @pytest.mark.parametrize("family", ["polynomial", "curve"])
 def test_probe_clamp_bounds_keep_values_and_restore(family):
-    """The probe's torch.clamp stand-ins give the plain versions the same
-    values, pass the whole gradient at a tie (the port's `clip` passes half,
-    as `jnp.clip` does), and are undone on exit."""
+    """The probe's stand-ins for the bounds give the plain versions the same
+    values and are undone on exit; torch.clamp passes the whole gradient at
+    a tie, the two-pass form half of it, as the port's `clip` and
+    `jnp.clip` do."""
     rng = np.random.default_rng(7)
     if family == "polynomial":
         img = torch.from_numpy(rng.uniform(0, 1, (1, 6, 9, 3)).astype(np.float32))
@@ -263,12 +264,13 @@ def test_probe_clamp_bounds_keep_values_and_restore(family):
         def fn():
             return ck.fused_curve_enhance_reference(img, mask, *knots)
     before = fn()
-    tie = torch.tensor(1.0, requires_grad=True)
-    with kernel_probe.clamp_bounds():
-        assert torch.equal(fn(), before)
+    for form, tie_grad in (("clamp", 1.0), ("two-pass", 0.5)):
+        tie = torch.tensor(1.0, requires_grad=True)
+        with kernel_probe.bounds(form):
+            assert torch.equal(fn(), before)
+            cp.clip(tie, 0.0, 1.0).backward()
+        assert float(tie.grad) == tie_grad
+        tie.grad = None
         cp.clip(tie, 0.0, 1.0).backward()
-    assert float(tie.grad) == 1.0
-    tie.grad = None
-    cp.clip(tie, 0.0, 1.0).backward()
-    assert float(tie.grad) == 0.5
-    assert torch.equal(fn(), before)
+        assert float(tie.grad) == 0.5
+        assert torch.equal(fn(), before)

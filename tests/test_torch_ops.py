@@ -12,6 +12,7 @@ import pytest
 
 pytest.importorskip("jax")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 
@@ -163,3 +164,70 @@ def test_poly_chunk_keeps_only_live_parents():
 def test_poly_apply_rejects_bad_coeffs():
     with pytest.raises(ValueError, match="coeffs must be"):
         tpoly.poly_apply(torch.zeros(1, 2, 2, 5), torch.zeros(1, 3, 100))
+
+
+def _two_pass_clip(x, lo, hi=None):
+    """The two-pass bound (`jnp.clip` / `jnp.maximum` as torch ops) that
+    `clip` and `floor_at` replace with one clamp pass."""
+    y = torch.maximum(x, torch.full((), lo, dtype=x.dtype))
+    return y if hi is None else torch.minimum(y, torch.full((), hi, dtype=x.dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16])
+@pytest.mark.parametrize("lo,hi", [(0.0, 1.0), (1e-9, 1.0), (0.0, 60.0), (1e-4, None),
+                                   (1e-6, None)])
+def test_one_pass_bounds_bitwise_equal_two_pass(dtype, lo, hi):
+    """Values and gradients bitwise the two-pass form's, on inputs with many
+    values exactly at both bounds, outside them, NaN and -0."""
+    g = torch.Generator().manual_seed(0)
+    x = (torch.randint(-4, 9, (4096,), generator=g).to(dtype) / 4)
+    x[::7] = lo
+    if hi is not None:
+        x[3::11] = hi
+    x[::97] = float("nan")
+    x[5::101] = -0.0
+    w = torch.randn(4096, generator=g).to(dtype)
+    a, b = x.clone().requires_grad_(), x.clone().requires_grad_()
+    ya = tplanes.floor_at(a, lo) if hi is None else tplanes.clip(a, lo, hi)
+    yb = _two_pass_clip(b, lo, hi)
+    (ya * w).sum().backward()
+    (yb * w).sum().backward()
+    assert torch.equal(ya.detach().nan_to_num(7.0), yb.detach().nan_to_num(7.0))
+    assert torch.equal(a.grad, b.grad)
+    at_bound = (x == lo) if hi is None else (x == lo) | (x == hi)
+    assert at_bound.sum() > 500
+    assert torch.equal(a.grad[at_bound], w[at_bound] / 2)
+
+
+def test_one_pass_bound_matches_jax_gradient(rng):
+    x = np.round(rng.uniform(-0.5, 1.5, 2000) * 4) / 4
+    x = x.astype(np.float32)
+    jg = jax.grad(lambda v: jnp.sum(jnp.clip(v, 0.0, 1.0) * jnp.arange(2000.0)))(jnp.asarray(x))
+    t = torch.from_numpy(x).requires_grad_()
+    (tplanes.clip(t, 0.0, 1.0) * torch.arange(2000.0)).sum().backward()
+    np.testing.assert_array_equal(t.grad.numpy(), np.asarray(jg))
+    with pytest.raises(ValueError):
+        tplanes.clip(t, 1.0, 1.0)
+
+
+def test_clip_kernel_wrapper_takes_the_plain_version_on_the_cpu():
+    """K3's wrapper: the plain version for a CPU tensor (no launch counted),
+    a refusal for devices it has no kernel for, and a source jiterator can
+    parse (it compiles only on the card)."""
+    from torch.cuda import jiterator
+
+    from curl_tpu_torch.ops.kernels import clip_kernel
+
+    x = torch.tensor([-1.0, 0.0, 0.5, 1.0, 2.0, float("nan")])
+    g = torch.arange(1.0, 7.0)
+    before = clip_kernel.LAUNCHES
+    got = clip_kernel.tie_clip_grad(g, x, 0.0, 1.0)
+    assert clip_kernel.LAUNCHES == before
+    assert torch.equal(got, torch.tensor([0.0, 1.0, 3.0, 2.0, 0.0, 6.0]))
+    assert torch.equal(clip_kernel.tie_clip_grad(g, x, 0.0, None),
+                       torch.tensor([0.0, 1.0, 3.0, 4.0, 5.0, 6.0]))
+    with pytest.raises(ValueError, match="unsupported device"):
+        clip_kernel.tie_clip_grad(g.to("meta"), x.to("meta"), 0.0, 1.0)
+    parsed = jiterator._CodeParser(clip_kernel.functor_code())
+    assert parsed.function_name == "tie_clip_grad"
+    assert parsed.function_params == "(T g, T x, T lo, T hi)"
