@@ -74,6 +74,35 @@ Phases, each of which fails the run:
          256x256x1 in both blur forms, with the form `_blur` picks.
  10. Curve training: the same for CurlCurveNet rw_t at 48/48/64 knots with
      curve_reg_weight 1e-4, one epoch, K2's launch count.
+ 11. The serving entry points, for both families at rw_t (random weights from
+     seed 0, BN statistics from one batch, as in phases 4 and 7), 320^2
+     predict, 1920x1080, batch 8:
+     (a) Enhancer.enhance_chained at K=4 on the u8 wire: two chains, every
+         value within 1 of the per-batch path (the equal share printed);
+         K+1 launches counted while the first call warms up and captures the
+         CUDA graph and none while the second replays it; K kernel records
+         of the family's kernel in a torch.profiler trace of one replay;
+         chained against enhance_stream in turns (12 batches each, CUDA
+         events); the replay's device time per batch.
+     (b) `python -m curl_tpu_torch.cli.infer` (its main() in this process)
+         on checkpoints written by train/checkpoint.py: --img_dir over 17
+         PNGs at 1920x1080 (a padded trailing chunk) and 2 at 1000x750;
+         again with --auto_tile_pixels 1000000 on two of each, which sends
+         the 1080p group onto the banded route; --model curve --img_dir; and
+         --img_path with --mask_path. Written files within 1 u8 level of
+         Enhancer on the same images, and K1/K2 launches exactly the batches
+         plus the bands. Without PIL the directory runs go through
+         infer_dir's decode-free part (serve_groups), said on a log line.
+     (c) A reference-layout .pt of the polynomial model (`module.` prefix,
+         color buffers, polylayer.powers) through cli.convert, then cli.infer
+         from the result: bitwise the source model's output.
+     (d) cli.export --format torch_export --smoke_test for both families on
+         the card; the .pt2 loaded and run at 1920x1080 and 1000x750 against
+         Enhancer's fp32 path (K1 within 2e-4; K2 all but 1e-5 of the values),
+         its graph holding the custom op and each run launching it once.
+     (e) cli.export --format mobile --smoke_test: the predictor exported on
+         the card, the generated C apply compiled with the host's cc, at two
+         odd resolutions within 2e-3.
 
 The last two lines before the final one are the kernels' JSON record and the
 card's `name, power.limit`; the final line is
@@ -149,6 +178,22 @@ CLIP_REPLACES = ("none: jnp.clip's gradient, which XLA fuses (e.g. curl_tpu/ops/
                  "the ramp clip)")
 # The largest clip of the training path: one curve's ramp stack.
 RAMPS = 15
+
+# Phase 11: the serving entry points. The backbone the CLIs build, K batches
+# per chained call, the timed rounds, the infer CLI's directory (17 images
+# at 1920x1080, so a batch of 8 leaves a padded trailing chunk, and 2 at
+# 1000x750), the pixel bound that sends the 1080p group onto the banded
+# route in a second directory, and the odd sizes of the mobile apply.
+BACKBONE = "efficientnetv2_rw_t"
+CHAIN = 4
+CHAIN_ROUNDS = 3
+CLI_FULL, CLI_ODD = 17, 2
+ODD_H, ODD_W = 750, 1000
+BAND_PIXELS = 1_000_000
+MOBILE_HW = (1001, 751)
+EXPORT_TOL = 1e-3  # cli.export --smoke_test, as the JAX CLI checks its artifact
+MOBILE_TOL = 2e-3  # the JAX mobile smoke's bound
+K1_NAME, K2_NAME = "trispace_residual_kernel", "curve_enhance_kernel"
 
 
 def log(msg: str) -> None:
@@ -460,6 +505,25 @@ def calibrate_batch_norm(model, forward) -> None:
     model.eval()
     for m in norms:
         m.momentum = 0.1
+
+
+def calibrate_curve_model(curve_model, small) -> None:
+    """BN statistics from the predict view `small`, then the knot logits
+    rescaled to KNOT_STD when they fall outside KNOT_STD_RANGE."""
+    import torch
+
+    calibrate_batch_norm(curve_model, lambda: curve_model.predict_knots(small))
+    with torch.inference_mode():
+        knot_std = float(curve_model.predict_knots(small).std())
+    log(f"  knot logit std: {knot_std:.4f}")
+    if not KNOT_STD_RANGE[0] <= knot_std <= KNOT_STD_RANGE[1]:
+        # The classifier's bias is zero, so scaling its weight scales the
+        # logits and their std exactly.
+        with torch.no_grad():
+            curve_model.backbone.classifier.weight.mul_(KNOT_STD / knot_std)
+            knot_std = float(curve_model.predict_knots(small).std())
+        log(f"  outside {KNOT_STD_RANGE}: classifier weight rescaled, knot logit std now "
+            f"{knot_std:.4f}")
 
 
 def small_view(batch, dev):
@@ -922,6 +986,441 @@ def check_clip_kernel(clk, dev, rng) -> dict:
             "bound_ms": bound_ms}
 
 
+def serving_models(torch, dev, rng):
+    """Phase 11's two models at full width, as phases 4 and 7 build them:
+    rw_t from seed 0 with BN statistics from one batch, the curve model's
+    knot logits rescaled into range. Returns (polynomial, curve)."""
+    from curl_tpu_torch.models.curl_curve import CurlCurveNet
+    from curl_tpu_torch.models.trispace import TriSpacePolyNet
+
+    batch = serving_batch(rng, torch)
+    small, mask = small_view(batch, dev)
+    poly_model = TriSpacePolyNet(backbone=BACKBONE, device=dev,
+                                 generator=torch.Generator().manual_seed(SEED))
+    calibrate_batch_norm(poly_model, lambda: poly_model.generate_coefficients(small, mask))
+    curve_model = CurlCurveNet(backbone=BACKBONE, device=dev,
+                               generator=torch.Generator().manual_seed(SEED))
+    calibrate_curve_model(curve_model, small)
+    return poly_model, curve_model
+
+
+def chain_inputs(rng, torch):
+    """K u8-wire serving batches stacked on a leading chain axis, pinned."""
+    batches = [serving_batch(rng, torch) for _ in range(CHAIN)]
+    return tuple(torch.stack([b[i] for b in batches]).pin_memory() for i in range(3))
+
+
+def kernel_records(torch, fn) -> dict:
+    """{K1: n, K2: n}: kernel records of each name in a torch.profiler trace
+    of `fn()` (CUDA activity only)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    counts = {"K1": sum(K1_NAME in n for n in names), "K2": sum(K2_NAME in n for n in names)}
+    if not names:
+        raise AssertionError("the profiler recorded no CUDA activity")
+    return counts
+
+
+def chained_serving(torch, enh, family: str, rng, counters, card) -> dict:
+    """Phase 11a for one family: enhance_chained at K=CHAIN on the u8 wire
+    against the per-batch path, K kernel records in a traced replay, chained
+    against enhance_stream in turns (CUDA events), and the replay's device
+    time per batch."""
+    kernel = "K1" if family == "trispace" else "K2"
+    other = "K2" if kernel == "K1" else "K1"
+    chains = [chain_inputs(rng, torch) for _ in range(2)]
+    outs, captured = counted(counters, lambda: [enh.enhance_chained(*c)[0] for c in chains])
+    # The first call warms up (one launch) and captures K; the second only replays.
+    log(f"  launches counted while the first call warmed up and captured the graph, and "
+        f"the second replayed it: {captured}")
+    if captured != {kernel: CHAIN + 1, other: 0}:
+        raise AssertionError(f"expected {CHAIN + 1} {kernel} launches and no {other}")
+    worst, same = 0, 1.0
+    for chain, out in zip(chains, outs):
+        if out.shape != (CHAIN, BATCH, HEIGHT, WIDTH, 3) or out.dtype != torch.uint8:
+            raise AssertionError(f"chained output {tuple(out.shape)} {out.dtype}")
+        for k in range(CHAIN):
+            ref = enh.enhance_image(*(x[k] for x in chain))
+            diff = (out[k].int() - ref.int()).abs()
+            worst = max(worst, int(diff.max()))
+            same = min(same, float((diff == 0).float().mean()))
+    log(f"  chained vs per-batch _full, {2 * CHAIN} batches: max diff {worst}, equal share "
+        f"{same:.6f}")
+    if worst > 1:
+        raise AssertionError("chained output more than 1 apart from the per-batch path")
+    del outs
+
+    (graph,) = enh._chained.values()
+    records = kernel_records(torch, graph.graph.replay)
+    log(f"  kernel records in a torch.profiler trace of one replay: {records}")
+    if records != {kernel: CHAIN, other: 0}:
+        raise AssertionError(f"expected {CHAIN} {kernel} and no {other} records in the replay")
+
+    chain = chains[0]
+    batches = [tuple(x[k] for x in chain) for k in range(CHAIN)]
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    def rate(fn) -> float:
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        return CHAIN_ROUNDS * CHAIN * BATCH / (start.elapsed_time(end) / 1e3)
+
+    def stream():
+        for _ in enh.enhance_stream(iter(batches * CHAIN_ROUNDS), max_in_flight=3):
+            pass
+
+    def chained():
+        for _ in range(CHAIN_ROUNDS):
+            enh.enhance_chained(*chain)
+
+    rates = {"stream": [], "chained": []}
+    for name in ("stream", "chained", "chained", "stream", "stream", "chained"):
+        rates[name].append(rate(stream if name == "stream" else chained))
+    device_ms = cuda_ms(graph.graph.replay, 5) / CHAIN
+    log(f"  {family} u8 wire, {CHAIN_ROUNDS * CHAIN} batches of {BATCH} per run, in turns "
+        f"(s c c s s c): enhance_stream {', '.join(f'{r:.2f}' for r in rates['stream'])} "
+        f"img/s; enhance_chained {', '.join(f'{r:.2f}' for r in rates['chained'])} img/s; "
+        f"replay device time {device_ms:.3f} ms per batch  [{card}]")
+    return {"launches": records[kernel], "stream": rates["stream"],
+            "chained": rates["chained"], "device_ms": device_ms}
+
+
+def write_pngs(root, images: dict) -> None:
+    from PIL import Image
+
+    root.mkdir(parents=True)
+    for name, img in images.items():
+        Image.fromarray(img).save(root / name, compress_level=1)
+
+
+def cli_images(rng) -> dict:
+    """{name: u8 image}: CLI_FULL at HEIGHT x WIDTH and CLI_ODD at ODD_H x ODD_W."""
+    out = {f"full_{i:02d}.png": rng.integers(0, 256, (HEIGHT, WIDTH, 3), dtype=np.uint8)
+           for i in range(CLI_FULL)}
+    out.update({f"odd_{i}.png": rng.integers(0, 256, (ODD_H, ODD_W, 3), dtype=np.uint8)
+                for i in range(CLI_ODD)})
+    return out
+
+
+def run_infer_dir(images: dict, ckpt: str, model: str, tmp, tag: str, pil: bool,
+                  bound=None) -> tuple[dict, float]:
+    """`python -m curl_tpu_torch.cli.infer --img_dir` in this process on
+    `images` (as PNGs with PIL; without it, through `infer_dir`'s
+    decode-free part, `serve_groups`). Returns ({name: u8 output}, seconds)."""
+    from curl_tpu_torch.cli import infer as icli
+    from curl_tpu_torch.config import Config
+
+    src, dst = tmp / f"in_{tag}", tmp / f"out_{tag}"
+    args = ["--img_dir", str(src), "--out_dir", str(dst), "--checkpoint_dir", ckpt,
+            "--model", model, "--backbone", BACKBONE, "--backbone_size", str(PREDICT),
+            "--batch_size", str(BATCH)]
+    if bound is not None:
+        args += ["--auto_tile_pixels", str(bound)]
+    if pil:
+        from PIL import Image
+
+        write_pngs(src, images)
+        t0 = time.perf_counter()
+        icli.main(args)
+        seconds = time.perf_counter() - t0
+        return {n: np.asarray(Image.open(dst / n)) for n in images}, seconds
+    cfg = Config(model=model, backbone=BACKBONE, auto_tile_pixels=bound)
+    groups: dict = {}
+    for name, img in sorted(images.items()):
+        groups.setdefault(img.shape[:2], []).append((name, img))
+    written: dict = {}
+    t0 = time.perf_counter()
+    enh = icli.build_enhancer(cfg, ckpt, PREDICT, out_u8=True)
+    icli.serve_groups(enh, groups, str(dst), PREDICT, BATCH, 6,
+                      lambda arr, path: written.__setitem__(Path(path).name, arr))
+    return written, time.perf_counter() - t0
+
+
+def cli_reference(enh, images: dict, one_by_one=()) -> dict:
+    """{name: u8 output} of `enh.enhance_image` on the CLI's own batches:
+    each resolution group in name order, in chunks of BATCH with the
+    trailing chunk padded by its last image; a group whose shape is in
+    `one_by_one` (the banded route) one image at a time. The backbone's
+    result depends on the batch it runs in by an ulp, and the curve
+    model's ten curves can turn that into a branch flip, so the reference
+    runs the same batches."""
+    from curl_tpu_torch.cli.infer import _small_view
+
+    groups: dict = {}
+    for name in sorted(images):
+        groups.setdefault(images[name].shape[:2], []).append(name)
+    out = {}
+    for shape, names in groups.items():
+        size = 1 if shape in one_by_one else min(BATCH, len(names))
+        for i in range(0, len(names), size):
+            chunk = names[i : i + size]
+            padded = chunk + [chunk[-1]] * (size - len(chunk))
+            small = np.stack([_small_view(images[n], PREDICT) for n in padded])
+            res = enh.enhance_image(small, np.ones(small.shape[:3] + (1,), np.uint8),
+                                    np.stack([images[n] for n in padded]))
+            out.update((n, res[j].cpu().numpy()) for j, n in enumerate(chunk))
+    return out
+
+
+def check_cli_outputs(torch, outputs: dict, images: dict, enh, what: str,
+                      one_by_one=()) -> None:
+    """Every written image within 1 u8 level of `enh` (u8 wire, whole
+    image) on the same images in the same batches (`cli_reference`)."""
+    worst, same = 0, 1.0
+    reference = cli_reference(enh, images, one_by_one)
+    for name, img in images.items():
+        ref = reference[name]
+        got = outputs[name]
+        if got.shape != img.shape or got.dtype != np.uint8:
+            raise AssertionError(f"{what}: {name} written as {got.shape} {got.dtype}")
+        diff = np.abs(got.astype(np.int32) - ref.astype(np.int32))
+        worst, same = max(worst, int(diff.max())), min(same, float((diff == 0).mean()))
+    log(f"  {what}: {len(images)} files vs Enhancer: max diff {worst}, equal share {same:.6f}")
+    if worst > 1:
+        raise AssertionError(f"{what}: written files more than 1 apart from Enhancer")
+
+
+def counted(counters, fn):
+    """(fn(), {kernel: launches}) with every count set to 0 just before."""
+    for mod in counters.values():
+        mod.LAUNCHES = 0
+    out = fn()
+    return out, {name: mod.LAUNCHES for name, mod in counters.items()}
+
+
+def infer_cli(torch, models, ckpts, pil, tmp, rng, counters, card) -> dict:
+    """Phase 11b: the infer CLI on both families; exact K1/K2 launches."""
+    from curl_tpu_torch.cli import infer as icli
+    from curl_tpu_torch.infer import engine
+    from curl_tpu_torch.infer.engine import Enhancer
+
+    poly_model, curve_model = models
+    images = cli_images(rng)
+    full = -(-CLI_FULL // BATCH) + -(-CLI_ODD // BATCH)
+    enh = Enhancer(poly_model, backbone_size=PREDICT, out_u8=True)
+    (outs, seconds), n = counted(counters, lambda: run_infer_dir(
+        images, ckpts["trispace"], "trispace", tmp, "poly", pil))
+    log(f"  --img_dir, polynomial: {len(images)} images in {seconds:.3f} s = "
+        f"{len(images) / seconds:.2f} img/s (model build, restore, decode, serve, encode); "
+        f"launches {n}  [{card}]")
+    if n != {"K1": full, "K2": 0}:
+        raise AssertionError(f"expected {full} K1 launches (padded batches), counted {n}")
+    check_cli_outputs(torch, outs, images, enh, "polynomial --img_dir")
+    rates = {"trispace": len(images) / seconds}
+    if pil:
+        from curl_tpu_torch.data.dataset import decode_u8
+        from curl_tpu_torch.utils.imageio import save_image_u8
+
+        name = sorted(images)[0]
+        t0 = time.perf_counter()
+        decode_u8(str(tmp / "in_poly" / name))
+        t1 = time.perf_counter()
+        save_image_u8(outs[name], str(tmp / "encoded.png"))
+        t2 = time.perf_counter()
+        log(f"  the CLI's host PNG work for one {WIDTH}x{HEIGHT} image: decode "
+            f"{(t1 - t0) * 1e3:.1f} ms, encode {(t2 - t1) * 1e3:.1f} ms")
+
+    banded = {k: images[k] for k in sorted(images)[:2] + sorted(images)[-CLI_ODD:]}
+    rows = engine.auto_tile_rows(HEIGHT, WIDTH, BAND_PIXELS)
+    bands = 2 * -(-HEIGHT // rows) + 1
+    (outs, _), n = counted(counters, lambda: run_infer_dir(
+        banded, ckpts["trispace"], "trispace", tmp, "banded", pil, bound=BAND_PIXELS))
+    log(f"  --img_dir --auto_tile_pixels {BAND_PIXELS}: the {HEIGHT}x{WIDTH} group in "
+        f"{rows}-row bands; launches {n}")
+    if n != {"K1": bands, "K2": 0}:
+        raise AssertionError(f"expected {bands} K1 launches (bands and one batch), counted {n}")
+    check_cli_outputs(torch, outs, banded, enh, "banded --img_dir",
+                      one_by_one={(HEIGHT, WIDTH)})
+
+    curve_enh = Enhancer(curve_model, backbone_size=PREDICT, out_u8=True)
+    (outs, seconds), n = counted(counters, lambda: run_infer_dir(
+        images, ckpts["curve"], "curve", tmp, "curve", pil))
+    log(f"  --img_dir, curve: {len(images) / seconds:.2f} img/s; launches {n}  [{card}]")
+    if n != {"K1": 0, "K2": full}:
+        raise AssertionError(f"expected {full} K2 launches, counted {n}")
+    check_cli_outputs(torch, outs, images, curve_enh, "curve --img_dir")
+    rates["curve"] = len(images) / seconds
+
+    single = None
+    if pil:
+        from PIL import Image
+
+        from curl_tpu_torch.data.dataset import load_image
+
+        name = sorted(images)[0]
+        mask = (rng.uniform(size=(HEIGHT, WIDTH)) < 0.9).astype(np.uint8) * 255
+        Image.fromarray(mask).save(tmp / "mask.png")
+        img_path, out_path = tmp / "in_poly" / name, tmp / "single.png"
+        _, n = counted(counters, lambda: icli.main([
+            "--img_path", str(img_path), "--mask_path", str(tmp / "mask.png"),
+            "--out_path", str(out_path), "--checkpoint_dir", ckpts["trispace"],
+            "--backbone", BACKBONE, "--backbone_size", str(PREDICT)]))
+        single = np.asarray(Image.open(out_path))
+        target = load_image(str(img_path))
+        tmask = load_image(str(tmp / "mask.png"), mono=True).astype(np.float32)[..., None]
+        small = icli._small_view(target, PREDICT)
+        smask = (icli._small_view(tmask, PREDICT) > 0).astype(np.float32)
+        ref = Enhancer(poly_model, backbone_size=PREDICT).enhance_image(
+            small[None], smask[None], target[None], tmask[None], white_background=True)
+        ref = np.clip(ref[0].cpu().numpy() * 255.0, 0, 255).astype(np.uint8)
+        diff = int(np.abs(single.astype(np.int32) - ref.astype(np.int32)).max())
+        log(f"  --img_path with --mask_path: max diff {diff} from Enhancer's fp32 path, "
+            f"white matte on {int((tmask == 0).sum())} pixels; launches {n}")
+        if diff > 1 or n != {"K1": 1, "K2": 0}:
+            raise AssertionError("--img_path output or launches disagree")
+    else:
+        log("  PIL is absent: --img_path and the PNG round trip are not driven; the "
+            "directory runs went through infer_dir's decode-free part (serve_groups)")
+    return {"rates": rates, "single": single, "mask": tmp / "mask.png",
+            "image": tmp / "in_poly" / sorted(images)[0]}
+
+
+def convert_then_serve(torch, poly_model, cli_result, tmp, pil) -> None:
+    """Phase 11c: a reference-layout .pt of the polynomial model through
+    cli.convert, then cli.infer from the result, bitwise the source's."""
+    from curl_tpu_torch.cli import convert as ccli
+    from curl_tpu_torch.cli import infer as icli
+    from curl_tpu_torch.ops import color_planes as cp
+    from curl_tpu_torch.ops import poly
+
+    ref = {f"module.{k}": v.detach().cpu() for k, v in poly_model.state_dict().items()}
+    ref["module.polylayer.powers"] = torch.from_numpy(poly.powers_array(4, 5))
+    ref["module.rgb2lab.rgb_to_xyz"] = torch.tensor(cp.RGB_TO_XYZ)
+    ref["module.lab2rgb.xyz_to_rgb"] = torch.tensor(cp.XYZ_TO_RGB)
+    ref["module.x"] = torch.linspace(0, 1, PREDICT)
+    ref["module.y"] = torch.linspace(0, 1, PREDICT)
+    torch.save({"model_state_dict": ref, "epoch": 5}, tmp / "reference.pt")
+    ccli.main(["--torch_checkpoint", str(tmp / "reference.pt"),
+               "--out_dir", str(tmp / "converted"), "--backbone", BACKBONE])
+    if pil:
+        got = icli.infer(str(cli_result["image"]), str(cli_result["mask"]),
+                         str(tmp / "converted"), str(tmp / "converted.png"),
+                         backbone_size=PREDICT, cfg=icli.Config(backbone=BACKBONE))
+        same = bool(np.array_equal(got, cli_result["single"]))
+        log(f"  cli.convert of a reference-layout .pt, then cli.infer: bitwise the source "
+            f"model's output: {same}")
+    else:
+        enh = icli.build_enhancer(icli.Config(backbone=BACKBONE), str(tmp / "converted"),
+                                  PREDICT)
+        batch = serving_batch(np.random.default_rng(SEED), torch)
+        source = icli.Enhancer(poly_model, backbone_size=PREDICT)
+        same = bool(torch.equal(enh.enhance_image(*batch), source.enhance_image(*batch)))
+        log(f"  cli.convert, then the converted Enhancer bitwise the source's: {same}")
+    if not same:
+        raise AssertionError("the converted checkpoint serves a different output")
+
+
+def export_and_run(torch, models, ckpts, tmp, counters, card) -> dict:
+    """Phase 11d: cli.export --format torch_export --smoke_test for both
+    families on the card; the .pt2 loaded and run at two resolutions against
+    Enhancer's fp32 path; the graph holds the custom op."""
+    from curl_tpu_torch.cli import export as ecli
+    from curl_tpu_torch.export import torch_export
+    from curl_tpu_torch.infer.engine import Enhancer
+
+    errors = {}
+    rng = np.random.default_rng(SEED)
+    for family, model in zip(("trispace", "curve"), models):
+        kernel, op = (("K1", torch.ops.curl_tpu_torch.trispace_residual.default)
+                      if family == "trispace"
+                      else ("K2", torch.ops.curl_tpu_torch.curve_enhance.default))
+        path = tmp / f"{family}.pt2"
+        t0 = time.perf_counter()
+        ecli.main(["--checkpoint_dir", ckpts[family], "--out_path", str(path),
+                   "--format", "torch_export", "--model", family, "--backbone", BACKBONE,
+                   "--backbone_size", str(PREDICT), "--smoke_test"])
+        seconds = time.perf_counter() - t0
+        loaded = torch_export.load(str(path))
+        ops = sum(n.target == op for n in loaded.program.graph.nodes)
+        log(f"  {family}: exported with --smoke_test in {seconds:.1f} s, "
+            f"{path.stat().st_size / 2**20:.1f} MiB; {ops} {op} node(s) in the graph")
+        if ops != 1:
+            raise AssertionError(f"the exported {family} graph does not hold {op} once")
+        enh = Enhancer(model, backbone_size=PREDICT)
+        worst, far, numel, launches = 0.0, 0, 0, []
+        for h, w in ((HEIGHT, WIDTH), (ODD_H, ODD_W)):
+            small = torch.from_numpy(rng.uniform(0, 1, (1, PREDICT, PREDICT, 3))
+                                     .astype(np.float32)).to(enh.device)
+            mask = torch.ones(1, PREDICT, PREDICT, 1, device=enh.device)
+            target = torch.from_numpy(rng.uniform(0, 1, (1, h, w, 3)).astype(np.float32)).to(
+                enh.device)
+            got, n = counted(counters, lambda: loaded.call(small, mask, target))
+            launches.append(n)
+            err = (got - enh.enhance_image(small, mask, target)).abs()
+            worst, far = max(worst, float(err.max())), far + int((err > FP32_TOL).sum())
+            numel += err.numel()
+        log(f"  {family} .pt2 at {WIDTH}x{HEIGHT} and {ODD_W}x{ODD_H}: max |artifact - "
+            f"Enhancer fp32| {worst:.3e}, {far} of {numel} values over {FP32_TOL}; launches "
+            f"per run {launches}  [{card}]")
+        if any(n[kernel] != 1 for n in launches):
+            raise AssertionError(f"expected one {kernel} launch per run, counted {launches}")
+        if family == "trispace" and worst > FP32_TOL:
+            raise AssertionError("the exported polynomial enhancer disagrees with Enhancer")
+        if family == "curve" and far > CURVE_FLIP_SHARE * numel:
+            raise AssertionError("the exported curve enhancer disagrees with Enhancer")
+        errors[family] = worst
+    return errors
+
+
+def mobile_bundle(ckpts, tmp) -> None:
+    """Phase 11e: cli.export --format mobile --smoke_test: the predictor
+    exported on the card, the C apply compiled with the host's cc."""
+    from curl_tpu_torch.cli import export as ecli
+
+    t0 = time.perf_counter()
+    ecli.main(["--checkpoint_dir", ckpts["trispace"], "--out_path", str(tmp / "mobile"),
+               "--format", "mobile", "--backbone", BACKBONE, "--backbone_size", str(PREDICT),
+               "--target_h", str(MOBILE_HW[0]), "--target_w", str(MOBILE_HW[1]),
+               "--smoke_test"])
+    log(f"  mobile bundle exported and smoke-tested at {MOBILE_HW[1]}x{MOBILE_HW[0]} and "
+        f"53x97 in {time.perf_counter() - t0:.1f} s: "
+        + ", ".join(sorted(p.name for p in tmp.glob("mobile_*"))))
+
+
+def save_checkpoint(model, path) -> str:
+    from curl_tpu_torch.train import checkpoint as ckpt_lib
+    from curl_tpu_torch.train import state as state_lib
+
+    optimizer = state_lib.make_optimizer(model.parameters(), state_lib.onecycle_schedule(1, 1))
+    return ckpt_lib.write(str(path), state_lib.TrainState(model, optimizer), 0)
+
+
+def serving_entry_points(torch, dev, rng, counters, pil, card) -> dict:
+    """Phase 11. Returns the numbers the kernels' record carries."""
+    from curl_tpu_torch.infer.engine import Enhancer
+
+    models = serving_models(torch, dev, rng)
+    log("  (a) enhance_chained: one CUDA graph per K batches")
+    chained = {family: chained_serving(torch, Enhancer(model, backbone_size=PREDICT,
+                                                       out_u8=True),
+                                       family, rng, counters, card)
+               for family, model in zip(("trispace", "curve"), models)}
+    torch.cuda.empty_cache()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_serve_"))
+    try:
+        ckpts = {family: save_checkpoint(model, tmp / f"ckpt_{family}")
+                 for family, model in zip(("trispace", "curve"), models)}
+        log("  (b) python -m curl_tpu_torch.cli.infer")
+        cli = infer_cli(torch, models, ckpts, pil, tmp, rng, counters, card)
+        log("  (c) cli.convert, then cli.infer")
+        convert_then_serve(torch, models[0], cli, tmp, pil)
+        log("  (d) cli.export --format torch_export")
+        export_err = export_and_run(torch, models, ckpts, tmp, counters, card)
+        log("  (e) cli.export --format mobile")
+        mobile_bundle(ckpts, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"chained": chained, "cli": cli["rates"], "export_err": export_err}
+
+
 def pil_available() -> bool:
     try:
         import PIL  # noqa: F401
@@ -1020,18 +1519,7 @@ def main() -> int:
                                generator=torch.Generator().manual_seed(SEED))
     curve_batches = [serving_batch(rng, torch) for _ in range(1 + STREAM_BATCHES)]
     curve_small, _ = small_view(curve_batches[0], dev)
-    calibrate_batch_norm(curve_model, lambda: curve_model.predict_knots(curve_small))
-    with torch.inference_mode():
-        knot_std = float(curve_model.predict_knots(curve_small).std())
-    log(f"  knot logit std: {knot_std:.4f}")
-    if not KNOT_STD_RANGE[0] <= knot_std <= KNOT_STD_RANGE[1]:
-        # The classifier's bias is zero, so scaling its weight scales the
-        # logits and their std exactly.
-        with torch.no_grad():
-            curve_model.backbone.classifier.weight.mul_(KNOT_STD / knot_std)
-            knot_std = float(curve_model.predict_knots(curve_small).std())
-        log(f"  outside {KNOT_STD_RANGE}: classifier weight rescaled, knot logit std now "
-            f"{knot_std:.4f}")
+    calibrate_curve_model(curve_model, curve_small)
     curve_enh = Enhancer(curve_model, backbone_size=PREDICT, out_u8=True)
     plain_curve_model = copy.deepcopy(curve_model)
     plain_curve_model.curve_impl = "torch"
@@ -1219,6 +1707,11 @@ def main() -> int:
     for name in ("trispace", "curve"):
         t, n = train_times[name]
         log(f"  {name} training launches: {n}")
+
+    log(f"phase 11: serving entry points, rw_t {PREDICT}^2 predict -> {WIDTH}x{HEIGHT}")
+    torch.cuda.empty_cache()
+    serve = serving_entry_points(torch, dev, rng, counters, pil, card)
+    chained = serve["chained"]
     # K3 runs only on the training paths: its launches are theirs.
     clip_launches = sum(n["K3"] for _, n in train_times.values())
 
@@ -1239,6 +1732,8 @@ def main() -> int:
             "library_ms": None,
             "train_launches": train_times["trispace"][1]["K1"],
             "train_ms": k_train_ms,
+            "chained_launches": chained["trispace"]["launches"],
+            "chained_device_ms_per_batch": chained["trispace"]["device_ms"],
         },
         {
             "name": "fused_curve_enhance",
@@ -1256,6 +1751,8 @@ def main() -> int:
             "library_ms": None,
             "train_launches": train_times["curve"][1]["K2"],
             "train_ms": c_train_ms,
+            "chained_launches": chained["curve"]["launches"],
+            "chained_device_ms_per_batch": chained["curve"]["device_ms"],
         },
         {
             "name": "tie_clip_grad",

@@ -8,7 +8,10 @@ per-pixel tri-space apply of `TriSpacePolyNet` and the knot-curve pass of
 torch version beside it, which CPU tensors take. Training (`train/`,
 `python -m curl_tpu_torch.cli.main`) runs through the kernels'
 autograd.Functions: kernel forward, backward by autograd through the plain
-version.
+version. Serving's entry points are `python -m curl_tpu_torch.cli.infer`,
+`.cli.convert` and `.cli.export`. K1 and K2 are registered as the custom ops
+`curl_tpu_torch::trispace_residual` and `::curve_enhance` when this package
+is imported, which loading an exported `.pt2` needs.
 """
 
 from curl_tpu_torch.device import resolve_device

@@ -107,6 +107,14 @@ def decode_u8(path: str, mono: bool = False) -> np.ndarray:
     return np.asarray(img.convert("RGB"), dtype=np.uint8)
 
 
+def load_image(path: str, mono: bool = False) -> np.ndarray:
+    """Decode to float32 in [0,1]; HWC for color, HW bool for mono masks."""
+    raw = decode_u8(path, mono=mono)
+    if mono:
+        return raw.astype(bool)
+    return raw.astype(np.float32) / 255.0
+
+
 def load_example(rec: Record) -> dict[str, np.ndarray]:
     """{'input_img': (H,W,3) u8 0-255, 'output_img': (H,W,3) u8,
     'mask': (H,W,1) u8 {0,1}, 'name': str}.

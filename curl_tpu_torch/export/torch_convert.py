@@ -1,4 +1,21 @@
-"""Weight bridge: the JAX package's flax variables -> this port's state dict.
+"""Weight bridges into the port's models.
+
+Two loaders for checkpoints of the torch world, whose keys are the port's
+own (timm's names), so loading is key mapping and checking, no layout
+transform:
+
+  * `convert_trispace_state_dict`: a reference `TriSpaceRegNet` state dict
+    (the `.pt` files of the reference trainer) -> `TriSpacePolyNet`. The DDP
+    `module.` prefix is stripped, the constant buffers (`rgb2lab.*`,
+    `lab2rgb.*`, `rgb2hsv.*`, `hsv2rgb.*`, `x`, `y`) are ignored, and
+    `polylayer.powers` is checked against `ops/poly.py`'s monomial order.
+  * `init_with_pretrained_backbone`: a raw timm `efficientnetv2_rw_*`
+    ImageNet state dict -> the backbone only; the head stays as initialized.
+
+Both raise one ValueError that lists every problem at once.
+
+And the bridge from the JAX package: its flax variables -> this port's
+state dict.
 
 `state_dict_from_jax` takes `{'params': ..., 'batch_stats': ...}` as nested
 dicts of numpy arrays and returns the torch state dict with timm key names:
@@ -25,13 +42,112 @@ from typing import Any, Mapping
 
 import numpy as np
 import torch
+from torch import nn
 
 from curl_tpu_torch.models import backbone as bb
+from curl_tpu_torch.ops import poly
+
+# Constant buffers of the reference TriSpaceRegNet: compile-time constants
+# here, with no training state.
+_REFERENCE_CONSTANTS = ("rgb2lab.", "lab2rgb.", "rgb2hsv.", "hsv2rgb.")
+_TIMM_CLASSIFIER = ("classifier.weight", "classifier.bias")
 
 
 def strip_ddp_prefix(state_dict: Mapping[str, Any]) -> dict[str, Any]:
     """Remove the DataParallel/DistributedDataParallel 'module.' prefix."""
     return {(k[7:] if k.startswith("module.") else k): v for k, v in state_dict.items()}
+
+
+def _as_tensor(v) -> torch.Tensor:
+    return v.detach() if isinstance(v, torch.Tensor) else torch.from_numpy(np.array(v))
+
+
+def _gather(sd: Mapping[str, Any], expected: Mapping[str, torch.Tensor],
+            errors: list[str]) -> tuple[dict[str, torch.Tensor], set[str]]:
+    """Take each key of `expected` (the model's) from `sd`, shape-checked. A BN's `num_batches_tracked` is consumed when present
+    and otherwise left at the model's value, as the JAX converter ignores
+    it. Returns (entries found, the sd keys consumed)."""
+    out: dict[str, torch.Tensor] = {}
+    consumed: set[str] = set()
+    for key, ref in expected.items():
+        if key.endswith("num_batches_tracked"):
+            consumed.add(key)
+            continue
+        if key not in sd:
+            errors.append(f"missing torch key: {key}")
+            continue
+        consumed.add(key)
+        value = _as_tensor(sd[key])
+        if tuple(value.shape) != tuple(ref.shape):
+            errors.append(f"shape mismatch {key}: checkpoint {tuple(value.shape)} "
+                          f"vs model {tuple(ref.shape)}")
+            continue
+        out[key] = value.to(ref.dtype)
+    return out, consumed
+
+
+def _unconsumed(sd: Mapping[str, Any], consumed: set[str]) -> list[str]:
+    extra = sorted(set(sd) - consumed)
+    if not extra:
+        return []
+    return [f"unconsumed torch keys: {extra[:10]}{'...' if len(extra) > 10 else ''}"]
+
+
+def convert_trispace_state_dict(state_dict: Mapping[str, Any],
+                                model: nn.Module) -> dict[str, torch.Tensor]:
+    """A reference `TriSpaceRegNet` state dict -> the state dict of
+    `model` (a TriSpacePolyNet), on the CPU, ready for `load_state_dict`.
+    Raises one ValueError listing every missing key, every unconsumed key,
+    every shape mismatch and a powers order that differs from this
+    package's monomial basis."""
+    sd = strip_ddp_prefix(state_dict)
+    errors: list[str] = []
+    expected = model.state_dict()
+    out, consumed = _gather(sd, expected, errors)
+    if "polylayer.powers" in sd:
+        theirs = _as_tensor(sd["polylayer.powers"]).cpu().numpy().astype(np.int64)
+        ours = poly.powers_array(model.polynomial_order, model.num_in)
+        if theirs.shape != ours.shape or not np.array_equal(theirs, ours):
+            errors.append("polylayer.powers ordering differs from this framework's "
+                          "monomial basis")
+        consumed.add("polylayer.powers")
+    consumed.update(k for k in sd if k.startswith(_REFERENCE_CONSTANTS) or k in ("x", "y"))
+    errors += _unconsumed(sd, consumed)
+    if errors:
+        raise ValueError("checkpoint conversion failed:\n  " + "\n  ".join(errors))
+    for key, ref in expected.items():
+        out.setdefault(key, ref.detach().cpu())
+    return out
+
+
+def convert_timm_backbone_state_dict(state_dict: Mapping[str, Any],
+                                     model: nn.Module) -> dict[str, torch.Tensor]:
+    """A raw timm EfficientNetV2 ImageNet state dict (no `backbone.`
+    prefix, timm's own 1000-way classifier, possibly nested under
+    `state_dict` or `model`) -> the `backbone.*` entries of `model`'s state
+    dict without its classifier. Every timm key must be consumed or be the
+    ImageNet classifier; raises one ValueError listing every problem."""
+    sd = strip_ddp_prefix(state_dict)
+    for nest in ("state_dict", "model"):
+        if nest in sd and isinstance(sd[nest], Mapping):
+            sd = strip_ddp_prefix(sd[nest])
+    expected = {k[len("backbone."):]: v for k, v in model.state_dict().items()
+                if k.startswith("backbone.") and not k.startswith("backbone.classifier.")}
+    errors: list[str] = []
+    out, consumed = _gather(sd, expected, errors)
+    errors += _unconsumed(sd, consumed | set(_TIMM_CLASSIFIER))
+    if errors:
+        raise ValueError("timm backbone conversion failed:\n  " + "\n  ".join(errors))
+    return {f"backbone.{k}": v for k, v in out.items()}
+
+
+def init_with_pretrained_backbone(model: nn.Module, timm_state_dict: Mapping[str, Any]) -> nn.Module:
+    """Overwrite `model`'s backbone (in place) with converted timm ImageNet
+    weights; the head keeps its initialization (the identity transform
+    under `identity_init`). Returns the model."""
+    # The keys are the model's own, so strict=False leaves out only the head.
+    model.load_state_dict(convert_timm_backbone_state_dict(timm_state_dict, model), strict=False)
+    return model
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> dict[str, np.ndarray]:

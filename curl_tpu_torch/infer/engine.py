@@ -12,6 +12,10 @@ leave as uint8 (`out_u8`, floor-quantized on the device), four times fewer
 bytes each way than fp32. A uint8 target with `out_u8` goes to the fused
 kernels as it is: they read u8 and write u8 (`ops.wire`), with no torch
 normalize or quantize pass around them.
+
+`enhance_chained` serves K batches per host call: on `cuda` their K `_full`
+calls are one CUDA graph, so the host's per-batch enqueue of the backbone's
+kernels is paid once at capture, and each call after it is one graph launch.
 """
 
 from __future__ import annotations
@@ -74,6 +78,40 @@ def auto_tile_rows(height: int, width: int, budget_px: int) -> Optional[int]:
     return min(rows, height)
 
 
+class _ChainedGraph:
+    """K consecutive `Enhancer._full` calls captured as one CUDA graph, with
+    static input buffers (K, B, ...) and the stacked output (K, B, H, W, C).
+
+    Capture follows a warm-up on a side stream: the first launch of K1 or K2
+    builds it with nvcc and cuDNN picks its algorithms, and neither may
+    happen inside a capture. Host-to-device copies stay out of the graph:
+    `run` copies each call's inputs into the static buffers, then replays."""
+
+    def __init__(self, enhancer: "Enhancer", inputs: list[Tensor]):
+        device = enhancer.device
+        self.inputs = [torch.empty(x.shape, dtype=x.dtype, device=device) for x in inputs]
+        for static, x in zip(self.inputs, inputs):
+            static.copy_(x)
+        chain = len(inputs[0])
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            enhancer._full(*(x[0] for x in self.inputs))
+        torch.cuda.current_stream(device).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.output = torch.stack(
+                [enhancer._full(*(x[k] for x in self.inputs)) for k in range(chain)]
+            )
+
+    def run(self, inputs: list[Tensor]) -> Tensor:
+        for static, x in zip(self.inputs, inputs):
+            static.copy_(x, non_blocking=True)
+        self.graph.replay()
+        # The next replay overwrites the static output.
+        return self.output.clone()
+
+
 class Enhancer:
     """Wraps a TriSpacePolyNet or a CurlCurveNet for deployment-style
     inference.
@@ -100,6 +138,11 @@ class Enhancer:
         auto_tile_pixels: Optional[int] = None,
     ):
         enhance._check_impl(impl)
+        if not isinstance(model, (TriSpacePolyNet, CurlCurveNet)):
+            raise NotImplementedError(
+                f"{type(model).__name__} has no predict-on-low-resolution serving path; "
+                "Enhancer serves TriSpacePolyNet and CurlCurveNet"
+            )
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.is_curve = isinstance(model, CurlCurveNet)
@@ -111,6 +154,8 @@ class Enhancer:
             self.u8_tile_pixels = default_tile_pixels(self.device, impl, u8_wire=out_u8)
         else:
             self.auto_tile_pixels = self.u8_tile_pixels = auto_tile_pixels
+        # One captured graph per (out_u8, K and the inputs' shapes and dtypes).
+        self._chained: dict[tuple, _ChainedGraph] = {}
 
     def _to_device(self, x) -> Tensor:
         return torch.as_tensor(x).to(self.device, non_blocking=True)
@@ -178,6 +223,28 @@ class Enhancer:
             with torch.inference_mode():
                 out = wire.quantize_u8(out)
         return out
+
+    def enhance_chained(self, img_small, mask_small, target) -> tuple[Tensor, Tensor]:
+        """K-chained serving: every input carries a leading chain axis
+        (K, B, ...), and the K batches run in order. Returns (outputs
+        (K, B, H, W, C), probe scalar `outputs[0, 0, 0, 0, 0]`).
+
+        On `cuda` the K `_full` calls are one CUDA graph, captured at the
+        first call for these shapes and dtypes (`_ChainedGraph`) and
+        replayed after: the host enqueues one graph launch per K batches
+        instead of every kernel of every batch. A capture that fails
+        raises. On the CPU the method loops over `_full`."""
+        if self.device.type != "cuda":
+            outs = torch.stack([self._full(i, m, t)
+                                for i, m, t in zip(img_small, mask_small, target)])
+            return outs, outs[0, 0, 0, 0, 0]
+        inputs = [torch.as_tensor(x) for x in (img_small, mask_small, target)]
+        key = (self.out_u8,) + tuple((tuple(x.shape), x.dtype) for x in inputs)
+        graph = self._chained.get(key)
+        if graph is None:
+            graph = self._chained[key] = _ChainedGraph(self, inputs)
+        outs = graph.run(inputs)
+        return outs, outs[0, 0, 0, 0, 0]
 
     def enhance_stream(self, batches: Iterable, max_in_flight: int = 6) -> Iterator[Tensor]:
         """Pipelined batch enhancement: yields outputs in order while at most

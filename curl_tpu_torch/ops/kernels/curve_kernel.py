@@ -13,8 +13,14 @@ kernel reads it as x / 255 (a uint8 mask as its value) and writes the
 floor-quantized result as uint8, the expressions of `ops.wire`, which the
 plain version applies around its fp32 math.
 
-`LAUNCHES` counts kernel launches (plain-version calls are not counted), so
-a run can show that its main path went through the kernel.
+The launch is the custom op `curl_tpu_torch::curve_enhance`
+(`torch.library`), with a fake implementation that gives the output's shape
+and dtype, so `torch.export` records it as one node and a CUDA graph
+captures it like any other op.
+
+`LAUNCHES` counts kernel launches in the op's real implementation
+(plain-version calls are not counted), so a run can show that its main path
+went through the kernel.
 """
 
 from __future__ import annotations
@@ -111,6 +117,8 @@ def _library() -> ctypes.CDLL:
 def _launch(img: Tensor, mask: Optional[Tensor], knots_lab: Tensor, knots_rgb: Tensor,
             knots_hsv: Tensor) -> Tensor:
     global LAUNCHES
+    if img.device.type != "cuda":
+        raise ValueError(f"the curve kernel runs on CUDA tensors; got {img.device}")
     if img.dtype not in _DTYPES:
         raise TypeError(f"img must be float32, bfloat16 or uint8; got {img.dtype}")
     if mask is not None and mask.dtype != img.dtype:
@@ -144,13 +152,28 @@ def _launch(img: Tensor, mask: Optional[Tensor], knots_lab: Tensor, knots_rgb: T
     return out
 
 
+@torch.library.custom_op("curl_tpu_torch::curve_enhance", mutates_args=())
+def curve_enhance_op(img: Tensor, mask: Optional[Tensor], knots_lab: Tensor,
+                     knots_rgb: Tensor, knots_hsv: Tensor) -> Tensor:
+    """One launch of K2 on CUDA tensors (the arguments of `_launch`)."""
+    return _launch(img, mask, knots_lab, knots_rgb, knots_hsv)
+
+
+@curve_enhance_op.register_fake
+def _(img, mask, knots_lab, knots_rgb, knots_hsv):
+    # The u8 wire writes uint8, every other mode the input's dtype: either
+    # way the output is shaped and typed as img.
+    return torch.empty_like(img)
+
+
 class _FusedCurve(torch.autograd.Function):
-    """Kernel forward; backward by autograd through the plain version."""
+    """Kernel forward (the custom op); backward by autograd through the
+    plain version."""
 
     @staticmethod
     def forward(ctx, img, mask, knots_lab, knots_rgb, knots_hsv):
         ctx.save_for_backward(img, mask, knots_lab, knots_rgb, knots_hsv)
-        return _launch(img, mask, knots_lab, knots_rgb, knots_hsv)
+        return curve_enhance_op(img, mask, knots_lab, knots_rgb, knots_hsv)
 
     @staticmethod
     def backward(ctx, grad):
@@ -194,5 +217,5 @@ def fused_curve_enhance(
         raise ValueError(f"unsupported device {img.device}")
     if img.dtype == torch.uint8:
         # The quantized wire carries no gradient.
-        return _launch(img, mask, knots_lab, knots_rgb, knots_hsv)
+        return curve_enhance_op(img, mask, knots_lab, knots_rgb, knots_hsv)
     return _FusedCurve.apply(img, mask, knots_lab, knots_rgb, knots_hsv)

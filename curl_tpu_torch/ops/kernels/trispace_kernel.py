@@ -11,8 +11,15 @@ A uint8 image (composite only) is the u8 wire: the kernel reads it as
 x / 255 and writes the floor-quantized composite as uint8, the expressions
 of `ops.wire`, which the plain version applies around its fp32 math.
 
-`LAUNCHES` counts kernel launches (plain-version calls are not counted), so
-a run can show that its main path went through the kernel.
+The launch is the custom op `curl_tpu_torch::trispace_residual`
+(`torch.library`), with a fake implementation that gives the output's shape
+and dtype, so `torch.export` records it as one node and a CUDA graph
+captures it like any other op. Its height and width arguments may be
+symbolic under export.
+
+`LAUNCHES` counts kernel launches in the op's real implementation
+(plain-version calls are not counted), so a run can show that its main path
+went through the kernel.
 """
 
 from __future__ import annotations
@@ -41,6 +48,8 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2}
 
 
 def _resolve_tile(img: Tensor, row0, static_tile, tile):
+    """(row0, col0, total_h, total_w) as given: ints, or SymInts under
+    torch.export, never specialized here."""
     _, h, w, _ = img.shape
     if tile is not None:
         row0, col0, th, tw = tile
@@ -49,7 +58,7 @@ def _resolve_tile(img: Tensor, row0, static_tile, tile):
         row0 = 0 if row0 is None else row0
     else:
         row0, col0, th, tw = 0, 0, h, w
-    return int(row0), int(col0), int(th), int(tw)
+    return tuple(v if isinstance(v, torch.SymInt) else int(v) for v in (row0, col0, th, tw))
 
 
 def fused_trispace_residual_reference(
@@ -143,6 +152,8 @@ def _launch(
     composite: bool,
 ) -> Tensor:
     global LAUNCHES
+    if img.device.type != "cuda":
+        raise ValueError(f"the trispace kernel runs on CUDA tensors; got {img.device}")
     if img.dtype not in _DTYPES:
         raise TypeError(f"img must be float32, bfloat16 or uint8; got {img.dtype}")
     if img.dtype == torch.uint8 and not composite:
@@ -183,16 +194,34 @@ def _launch(
     return out
 
 
+@torch.library.custom_op("curl_tpu_torch::trispace_residual", mutates_args=())
+def trispace_residual_op(
+    img: Tensor, coeff_rgb: Tensor, coeff_lab: Tensor, coeff_hsv: Tensor, row0: int,
+    total_h: int, total_w: int, spatial: bool, composite: bool,
+) -> Tensor:
+    """One launch of K1 on CUDA tensors (the arguments of `_launch`)."""
+    return _launch(img, coeff_rgb, coeff_lab, coeff_hsv, row0, spatial, total_h, total_w,
+                   composite)
+
+
+@trispace_residual_op.register_fake
+def _(img, coeff_rgb, coeff_lab, coeff_hsv, row0, total_h, total_w, spatial, composite):
+    # The u8 wire writes uint8, every other mode the input's dtype: either
+    # way the output is shaped and typed as img.
+    return torch.empty_like(img)
+
+
 class _FusedTrispace(torch.autograd.Function):
-    """Kernel forward; backward by autograd through the plain version."""
+    """Kernel forward (the custom op); backward by autograd through the
+    plain version."""
 
     @staticmethod
     def forward(ctx, img, coeff_rgb, coeff_lab, coeff_hsv, row0, spatial,
                 total_h, total_w, composite):
         ctx.save_for_backward(img, coeff_rgb, coeff_lab, coeff_hsv)
         ctx.cfg = (row0, spatial, total_h, total_w, composite)
-        return _launch(img, coeff_rgb, coeff_lab, coeff_hsv, row0, spatial,
-                       total_h, total_w, composite)
+        return trispace_residual_op(img, coeff_rgb, coeff_lab, coeff_hsv, row0, total_h,
+                                    total_w, spatial, composite)
 
     @staticmethod
     def backward(ctx, grad):
@@ -253,6 +282,7 @@ def fused_trispace_residual(
         raise ValueError(f"the CUDA kernel is built for degree {_KERNEL_DEGREE}; got {degree}")
     if img.dtype == torch.uint8:
         # The quantized wire carries no gradient.
-        return _launch(img, coeff_rgb, coeff_lab, coeff_hsv, row0, spatial, th, tw, composite)
+        return trispace_residual_op(img, coeff_rgb, coeff_lab, coeff_hsv, row0, th, tw,
+                                    spatial, composite)
     return _FusedTrispace.apply(img, coeff_rgb, coeff_lab, coeff_hsv, row0,
                                 spatial, th, tw, composite)

@@ -116,7 +116,9 @@ def poly_apply(
 
     img: (B, H, W, V) polynomial variables; coeffs: (B, num_out, num_coeffs)
     in `monomial_powers` order. Evaluates at most `chunk_pixels` pixels of
-    every image at a time. Returns (B, H, W, num_out) in img's dtype.
+    every image at a time; under torch.export, where the pixel count is
+    symbolic, all of them in one pass. Returns (B, H, W, num_out) in img's
+    dtype.
     """
     b, h, w, v = img.shape
     n = num_monomials(degree, v)
@@ -127,11 +129,11 @@ def poly_apply(
     p = h * w
     flat = img.reshape(b, p, v)
     coeffs_t = coeffs.transpose(1, 2).to(flat.dtype)
-    outs = []
-    for start in range(0, p, chunk_pixels):
-        chunk = flat[:, start : start + chunk_pixels]
-        channels = [chunk[..., i] for i in range(v)]
-        outs.append(_eval_chunk(channels, coeffs_t, degree))
+    if isinstance(p, int):
+        chunks = [flat[:, s : s + chunk_pixels] for s in range(0, p, chunk_pixels)]
+    else:  # a loop over a symbolic count would specialize the export to one size
+        chunks = [flat]
+    outs = [_eval_chunk([c[..., i] for i in range(v)], coeffs_t, degree) for c in chunks]
     out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
     return out.reshape(b, h, w, num_out).to(img.dtype)
 

@@ -43,7 +43,16 @@ def save(
 ) -> str:
     """Write a checkpoint; prune to the newest `keep` by epoch, never
     deleting the best-PSNR one. Returns its directory."""
-    path = os.path.join(os.path.abspath(ckpt_dir), checkpoint_name(valid_psnr, valid_loss, epoch))
+    path = write(os.path.join(ckpt_dir, checkpoint_name(valid_psnr, valid_loss, epoch)),
+                 state, epoch)
+    _prune(ckpt_dir, keep)
+    return path
+
+
+def write(path: str, state: TrainState, epoch: int) -> str:
+    """Write the full training state as a checkpoint directory at `path`
+    (`restore` reads it). Returns its absolute path."""
+    path = os.path.abspath(path)
     os.makedirs(path, exist_ok=True)
     payload = {
         "model": state.model.state_dict(),
@@ -54,7 +63,6 @@ def save(
     tmp = os.path.join(path, STATE_FILE + ".tmp")
     torch.save(payload, tmp)
     os.replace(tmp, os.path.join(path, STATE_FILE))
-    _prune(ckpt_dir, keep)
     return path
 
 

@@ -23,7 +23,7 @@ from curl_tpu_torch import config as config_lib
 from curl_tpu_torch.config import Config
 from curl_tpu_torch.data import pipeline
 from curl_tpu_torch.device import resolve_device
-from curl_tpu_torch.export.torch_convert import strip_ddp_prefix
+from curl_tpu_torch.export import torch_convert
 from curl_tpu_torch.models import CurlCurveNet, PolyRegNet, TriSpacePolyNet
 from curl_tpu_torch.train import checkpoint as ckpt_lib
 from curl_tpu_torch.train import state as state_lib
@@ -215,19 +215,10 @@ class Trainer:
         log.info("params: %.2fM", state_lib.param_count(self.state) / 1e6)
 
     def _load_pretrained_backbone(self, pt_path: str) -> None:
-        """Load a timm EfficientNetV2 ImageNet state dict into the backbone.
-        The port's backbone carries timm's key names, so only the timm
-        classifier is left out; every other key must match."""
+        """Load a timm EfficientNetV2 ImageNet state dict into the backbone
+        (`export.torch_convert.init_with_pretrained_backbone`)."""
         payload = torch.load(pt_path, map_location="cpu", weights_only=True)
-        timm = strip_ddp_prefix(payload.get("state_dict", payload))
-        sd = {f"backbone.{k}": v for k, v in timm.items() if not k.startswith("classifier.")}
-        missing, unexpected = self.model.load_state_dict(sd, strict=False)
-        stray = [k for k in missing if not k.startswith("backbone.classifier.")]
-        if unexpected or stray:
-            raise ValueError(
-                f"{pt_path} does not fit the {self.cfg.backbone} backbone: "
-                f"unexpected {unexpected[:8]}, missing {stray[:8]}"
-            )
+        torch_convert.init_with_pretrained_backbone(self.model, payload)
 
     def _make_writer(self):
         try:

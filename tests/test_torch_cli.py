@@ -129,7 +129,7 @@ def test_pretrained_backbone_loads_timm_keys(mini, tmp_path):
                        donor.model.state_dict()["backbone.classifier.0.weight"])
     timm["blocks.0.0.conv.weight"] = torch.zeros(3, 3)
     torch.save(timm, path)
-    with pytest.raises(RuntimeError):
+    with pytest.raises(ValueError, match="shape mismatch blocks.0.0.conv.weight"):
         Trainer(_cfg(tmp_path / "c", pretrained_backbone=str(path)),
                 _records(mini, "train"), _records(mini, "valid"))
 

@@ -426,3 +426,89 @@ def test_clip_backward_launches_the_kernel(cuda):
     cp.clip(x, 0.0, 1.0).sum().backward()
     assert clip_kernel.LAUNCHES == before + 1
     assert x.grad.tolist() == [0.0, 0.5, 1.0, 0.5, 0.0]
+
+
+def test_custom_ops_on_cuda(cuda):
+    """K1 and K2 are the custom ops `curl_tpu_torch::trispace_residual` and
+    `::curve_enhance`: fake shapes and dtypes on CUDA tensors, and the op
+    called directly launches the kernel once and matches the wrapper."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    img, cs = _inputs(20, 2, 24, 40)
+    for dtype in (torch.float32, torch.bfloat16, torch.uint8):
+        with FakeTensorMode():
+            fake = torch.empty(2, 24, 40, 3, dtype=dtype, device="cuda")
+            fc = torch.empty(2, 3, 126, device="cuda")
+            out = torch.ops.curl_tpu_torch.trispace_residual(fake, fc, fc, fc, 0, 24, 40, True,
+                                                             True)
+            assert out.shape == fake.shape and out.dtype == dtype and out.device.type == "cuda"
+    before = tk.LAUNCHES
+    got = torch.ops.curl_tpu_torch.trispace_residual(img, *cs, 0, 24, 40, True, True)
+    assert tk.LAUNCHES == before + 1
+    assert torch.equal(got, tk.fused_trispace_residual(img, *cs, composite=True))
+    c_img, mask, *knots = _curve_inputs(21, 2, 24, 40)
+    before = ck.LAUNCHES
+    got = torch.ops.curl_tpu_torch.curve_enhance(c_img, None, *knots)
+    assert ck.LAUNCHES == before + 1
+    assert torch.equal(got, ck.fused_curve_enhance(c_img, None, *knots))
+
+
+def _tiny_models(device):
+    from curl_tpu_torch.models.curl_curve import CurlCurveNet
+    from curl_tpu_torch.models.trispace import TriSpacePolyNet
+
+    return [cls(backbone="tiny", device=device, generator=torch.Generator().manual_seed(0)).eval()
+            for cls in (TriSpacePolyNet, CurlCurveNet)]
+
+
+@pytest.mark.parametrize("u8", [False, True])
+def test_enhance_chained_graph_matches_per_batch(cuda, u8):
+    """The captured graph against the per-batch path, on two chains of new
+    data (the second only replays: no launch is counted)."""
+    from curl_tpu_torch.infer.engine import Enhancer
+
+    rng = np.random.default_rng(22)
+    for model, mod in zip(_tiny_models(cuda), (tk, ck)):
+        enh = Enhancer(model, backbone_size=32, out_u8=u8)
+        for call in range(2):
+            small = rng.integers(0, 256, (3, 2, 32, 32, 3)).astype(np.uint8)
+            target = rng.integers(0, 256, (3, 2, 40, 56, 3)).astype(np.uint8)
+            if not u8:
+                small, target = small.astype(np.float32) / 255, target.astype(np.float32) / 255
+            mask = np.ones(small.shape[:4] + (1,), small.dtype)
+            before = mod.LAUNCHES
+            outs, probe = enh.enhance_chained(small, mask, target)
+            torch.cuda.synchronize()
+            assert mod.LAUNCHES - before == (4 if call == 0 else 0)
+            assert outs.shape == (3, 2, 40, 56, 3) and outs.device.type == "cuda"
+            assert float(probe) == float(outs[0, 0, 0, 0, 0])
+            for k in range(3):
+                torch.testing.assert_close(outs[k], enh.enhance_image(small[k], mask[k], target[k]),
+                                           rtol=0, atol=1 if u8 else 1e-6)
+        assert len(enh._chained) == 1
+
+
+def test_exported_program_on_cuda_holds_the_ops(cuda, tmp_path):
+    """torch.export on CUDA records each kernel as its custom op; the loaded
+    program runs it at two sizes against the model's own forward."""
+    from curl_tpu_torch.export import torch_export
+
+    rng = np.random.default_rng(23)
+    ops = (torch.ops.curl_tpu_torch.trispace_residual.default,
+           torch.ops.curl_tpu_torch.curve_enhance.default)
+    for model, op, mod in zip(_tiny_models(cuda), ops, (tk, ck)):
+        program = torch_export.export_enhancer(model, backbone_size=32)
+        assert sum(n.target == op for n in program.graph.nodes) == 1
+        torch_export.save(program, str(tmp_path / "e.pt2"))
+        loaded = torch_export.load(str(tmp_path / "e.pt2"))
+        for h, w in ((48, 40), (37, 71)):
+            img = torch.from_numpy(rng.uniform(0, 1, (1, 32, 32, 3)).astype(np.float32)).to(cuda)
+            target = torch.from_numpy(rng.uniform(0, 1, (1, h, w, 3)).astype(np.float32)).to(cuda)
+            mask = torch.ones(1, 32, 32, 1, device=cuda)
+            before = mod.LAUNCHES
+            got = loaded.call(img, mask, target)
+            assert mod.LAUNCHES == before + 1 and got.shape == (1, h, w, 3)
+            with torch.no_grad():
+                ref = model(img, mask, target)
+            ref = ref[0] if isinstance(ref, tuple) else ref
+            torch.testing.assert_close(got, ref, rtol=0, atol=2e-4)

@@ -15,6 +15,9 @@ PACKAGE = REPO / "curl_tpu_torch"
 MODULES = [
     "curl_tpu_torch",
     "curl_tpu_torch.cli",
+    "curl_tpu_torch.cli.convert",
+    "curl_tpu_torch.cli.export",
+    "curl_tpu_torch.cli.infer",
     "curl_tpu_torch.cli.main",
     "curl_tpu_torch.config",
     "curl_tpu_torch.data",
@@ -43,7 +46,9 @@ MODULES = [
     "curl_tpu_torch.models.metrics",
     "curl_tpu_torch.models.trispace",
     "curl_tpu_torch.export",
+    "curl_tpu_torch.export.mobile",
     "curl_tpu_torch.export.torch_convert",
+    "curl_tpu_torch.export.torch_export",
     "curl_tpu_torch.infer",
     "curl_tpu_torch.infer.engine",
     "curl_tpu_torch.tools",
