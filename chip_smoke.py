@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the port's two serving paths on one NVIDIA GPU and hold its CUDA
-kernels against their plain torch versions.
+"""Drive the port's serving, training, distributed and bf16 paths on one
+NVIDIA GPU and hold its CUDA kernels against their plain torch versions.
 
     python3 chip_smoke.py
 
@@ -103,9 +103,45 @@ Phases, each of which fails the run:
      (e) cli.export --format mobile --smoke_test: the predictor exported on
          the card, the generated C apply compiled with the host's cc, at two
          odd resolutions within 2e-3.
+ 12. Distribution, rw_t at full width, on a fresh copy of phase 9's dataset
+     (PIL needed). Each rank is this script in child mode
+     (`chip_smoke.py --cli-rank ARGS`: `cli.main.main(ARGS)` with its counts
+     set to 0 before and read after, each train step timed between syncs).
+     (a) The training CLI as one NCCL rank (torchrun variables, WORLD_SIZE=1):
+         TriSpacePolyNet, batch 32 of 256x256, 1 epoch: the group's backend is
+         nccl, a finite loss, one checkpoint, K1 launched once per train step
+         and eval batch, K2 never.
+     (b) The same CLI as two gloo ranks sharing cuda:0 (CURL_DIST_BACKEND=gloo),
+         global batch 32 (16 a rank), for both families: the ranks' losses
+         agree to 1e-6 and match the single-rank run's ((a) for the
+         polynomial, phase 10b for the curve) within 5e-4, each rank launched
+         K1 (or K2) once per train step and eval batch, and the parameters end
+         equal. Step times are printed beside (a)'s; they measure the
+         transport.
+     (c) sharded_trispace_residual over two gloo ranks on cuda:0 at 1920x1080
+         batch 8, fp32 residual and u8-wire composite: two K1 launches a rank,
+         within 1e-6 (fp32, bitwise or not printed) and 1 level (u8) of one
+         unsharded K1 launch.
+ 13. compute_dtype="bfloat16", rw_t at full width:
+     (a) Serving, 320^2 predict, 1920x1080 batch 8, u8 wire, from the same
+         calibrated weights at fp32 and bf16: the bf16-vs-fp32 coefficient
+         distance on the card within [0.5, 2]x the CPU's for the same models
+         and input (a model that never computes in bf16 reads 0); one K1 launch a batch; bf16 outputs against the bf16 model's
+         plain path as in phase 4; the bf16-vs-fp32 u8 share within 1 level
+         and max printed; backbone + head device time from a CUDA-graph
+         replay, and enhance_chained's replay per batch (K = 4), fp32 and bf16
+         in turns.
+     (b) Training: one step of batch 32 of 256x256 at bf16 through K1's
+         autograd.Function (one K1 launch, K3 launches, a bf16 stem
+         convolution) within 5% of the fp32 step's loss from the same
+         weights, fp32 parameters after it; then the
+         bf16 step's times beside phase 9c's.
 
-The last two lines before the final one are the kernels' JSON record and the
-card's `name, power.limit`; the final line is
+The kernels' record carries, besides each kernel's main-path launches and
+times, the launches of phases 12 and 13 and the backbone + head replay times
+at fp32 and bf16 (`fp32_backbone_ms`, `bf16_backbone_ms`). The last two lines
+before the final one are the kernels' JSON record and the card's
+`name, power.limit`; the final line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without CUDA, or outside a checkout of the repository, it exits non-zero and
 prints no result.
@@ -194,6 +230,26 @@ MOBILE_HW = (1001, 751)
 EXPORT_TOL = 1e-3  # cli.export --smoke_test, as the JAX CLI checks its artifact
 MOBILE_TOL = 2e-3  # the JAX mobile smoke's bound
 K1_NAME, K2_NAME = "trispace_residual_kernel", "curve_enhance_kernel"
+
+# Phase 12: distribution. The training CLI as one NCCL rank and as two gloo
+# ranks sharing cuda:0 (NCCL refuses two ranks on one device), at phase 9's
+# global batch and crop, one epoch on a fresh copy of its dataset; the
+# row-sharded apply over two gloo ranks at the serving shapes. The 2-rank
+# losses are held to the 1-rank ones within the bound tests/test_multiprocess.py
+# holds the JAX package's 2-process run to.
+DIST_EPOCHS = 1
+DIST_LOSS_ATOL = 5e-4
+RANK_AGREE_ATOL = 1e-6
+RANK_TIMEOUT = 900.0
+# Phase 13: bf16. The bf16 step's loss within 5% of the fp32 step's (on the
+# CPU, rw_t's first-step gap at batch 4 of 128x128 was 0.3%, the second
+# step's 1.2%, and JAX's own bf16-vs-fp32 step gap on the tiny model 1.2%);
+# the card's bf16-vs-fp32 coefficient distance within [0.5, 2]x the CPU's
+# for the same models and input. The loss bound alone would pass a model
+# that never computes in bf16; the distance ratio and the step's activation
+# dtype do not.
+BF16_LOSS_RTOL = 5e-2
+BF16_TURNS = ("fp32", "bf16", "bf16", "fp32")
 
 
 def log(msg: str) -> None:
@@ -748,8 +804,9 @@ def check_train_step(cfg, impl_attr: str, batch, counters, dev) -> None:
                              f"counted {k_n} and {p_n}")
 
 
-def train_and_resume(model_name: str, epochs: int, pil: bool, tmp, counters) -> dict:
-    """Phase 9b / 10b. Returns the launch counts of the training run."""
+def train_and_resume(model_name: str, epochs: int, pil: bool, tmp, counters) -> tuple:
+    """Phase 9b / 10b. Returns the launch counts of the training run and its
+    per-epoch train losses."""
     import torch
 
     from curl_tpu_torch.cli import main as cli
@@ -827,7 +884,7 @@ def train_and_resume(model_name: str, epochs: int, pil: bool, tmp, counters) -> 
         f"applied {int(opt_sd['count'])}; parameters, BN buffers and Adam state bitwise: {same}")
     if not (same and fresh.start_epoch == epochs and fresh.state.step == steps == payload["step"]):
         raise AssertionError("auto_resume did not restore the checkpoint bitwise")
-    return launches
+    return launches, losses
 
 
 class StepSplit:
@@ -1421,6 +1478,340 @@ def serving_entry_points(torch, dev, rng, counters, pil, card) -> dict:
     return {"chained": chained, "cli": cli["rates"], "export_err": export_err}
 
 
+def cli_rank(args: list) -> int:
+    """Child mode (`chip_smoke.py --cli-rank ARGS`): one rank of a phase-12
+    run of the training CLI. Calls `cli.main.main(ARGS)` in this process
+    (its rendezvous comes from the environment), with every kernel's count
+    set to 0 just before and read just after and each train step timed
+    between device syncs, then prints one line `CLI_RANK {json}`: the
+    launches, the process group's backend, a digest of the final parameters
+    and the step times."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    from curl_tpu_torch.cli import main as cli
+    from curl_tpu_torch.ops.kernels import clip_kernel as clk
+    from curl_tpu_torch.ops.kernels import curve_kernel as ck
+    from curl_tpu_torch.ops.kernels import trispace_kernel as tk
+    from curl_tpu_torch.train import loop
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    trainers, step_ms, backend = [], [], []
+    fit = loop.Trainer.fit
+
+    def recorded_fit(self):
+        step = self.train_step
+
+        def timed_step(*a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(*a)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        self.train_step = timed_step
+        trainers.append(self)
+        backend.append(dist.get_backend() if dist.is_initialized() else None)
+        fit(self)
+
+    loop.Trainer.fit = recorded_fit
+    counters = {"K1": tk, "K2": ck, "K3": clk}
+    for mod in counters.values():
+        mod.LAUNCHES = 0
+    cli.main(args)
+    torch.cuda.synchronize()
+    launches = {name: mod.LAUNCHES for name, mod in counters.items()}
+    digest = hashlib.sha256()
+    for v in trainers[0].model.state_dict().values():
+        digest.update(v.detach().cpu().contiguous().numpy().tobytes())
+    print("CLI_RANK " + json.dumps({"launches": launches, "params": digest.hexdigest(),
+                                    "step_ms": step_ms, "backend": backend}), flush=True)
+    return 0
+
+
+def run_cli_ranks(n: int, args: list, backend=None) -> tuple:
+    """`python3 chip_smoke.py --cli-rank ARGS` as `n` ranks with torchrun's
+    variables (and CURL_DIST_BACKEND=`backend`). Returns ([per-rank record
+    with its train losses, img/s and eval line parsed from its log], wall
+    seconds)."""
+    from curl_tpu_torch.parallel import launch
+
+    port = launch.free_port()
+    envs = []
+    for r in range(n):
+        env = launch.rank_env(r, n, port)
+        for k in ("COORDINATOR_ADDRESS", "NUM_PROCESSES", "PROCESS_ID"):
+            env.pop(k)
+        env.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK=str(r),
+                   WORLD_SIZE=str(n), LOCAL_RANK=str(r))
+        if backend:
+            env["CURL_DIST_BACKEND"] = backend
+        envs.append(env)
+    cmd = [sys.executable, str(Path(__file__).resolve()), "--cli-rank", *args]
+    t0 = time.perf_counter()
+    outs = launch.run_processes([cmd] * n, envs, RANK_TIMEOUT)
+    seconds = time.perf_counter() - t0
+    records = []
+    for out, err in outs:
+        (line,) = [x for x in out.splitlines() if x.startswith("CLI_RANK ")]
+        rec = json.loads(line[len("CLI_RANK "):])
+        train = [x for x in err.splitlines() if "train loss: " in x]
+        rec["losses"] = [float(x.split("train loss: ")[1].split()[0]) for x in train]
+        rec["img_per_s"] = [float(x.split("(")[1].split()[0]) for x in train]
+        rec["eval"] = [x.split("loss_valid: ")[1] for x in err.splitlines() if "loss_valid: " in x]
+        records.append(rec)
+    return records, seconds
+
+
+def sharded_apply_rank() -> dict:
+    """Phase 12c on one rank: `sharded_trispace_residual` at 1920x1080 batch
+    8, fp32 residual and u8-wire composite, each band one K1 launch; then one
+    unsharded K1 launch of each (after the count is read) to compare."""
+    import torch
+
+    from curl_tpu_torch.ops.kernels import trispace_kernel as tk
+    from curl_tpu_torch.parallel import mesh as mesh_lib
+    from curl_tpu_torch.parallel.spatial import sharded_trispace_residual
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rng = np.random.default_rng(SEED + 12)
+    img = image(rng, BATCH, HEIGHT, WIDTH, dev)
+    cs = coefficients(rng, BATCH, 126, dev)
+    img8 = (img * 255).to(torch.uint8)
+    mesh = mesh_lib.require_every_rank(mesh_lib.make_mesh())
+    tk.LAUNCHES = 0
+    fp32 = sharded_trispace_residual(mesh, img, *cs)
+    u8 = sharded_trispace_residual(mesh, img8, *cs, composite=True)
+    torch.cuda.synchronize()
+    launches = tk.LAUNCHES
+    whole = tk.fused_trispace_residual(img, *cs)
+    whole8 = tk.fused_trispace_residual(img8, *cs, composite=True)
+    d, d8 = (fp32 - whole).abs(), (u8.int() - whole8.int()).abs()
+    return {"launches": launches, "rows": HEIGHT // mesh.data, "fp32_max": float(d.max()),
+            "fp32_bitwise": bool(torch.equal(fp32, whole)), "u8_max": int(d8.max()),
+            "u8_equal_share": float((d8 == 0).float().mean()),
+            "shape": list(fp32.shape), "u8_dtype": str(u8.dtype)}
+
+
+def distribution(torch, card, phase_losses: dict) -> dict:
+    """Phase 12. `phase_losses["curve"]` holds phase 10b's one-epoch curve
+    losses (the curve family's single-rank reference). Returns the launches
+    and times the kernels' record carries."""
+    from curl_tpu_torch.parallel import launch
+    from curl_tpu_torch.train import checkpoint as ckpt_lib
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_dist_"))
+    try:
+        write_dataset(tmp / "data")
+        base = ["--training_img_dirpath", str(tmp / "data"), "--num_epoch", str(DIST_EPOCHS),
+                "--valid_every", "1", "--seed", str(SEED)]
+        steps = DIST_EPOCHS * TRAIN_PAIRS // TRAIN_BATCH
+        evals = DIST_EPOCHS * -(-VALID_PAIRS // TRAIN_BATCH)
+        log(f"  (a) cli.main as one NCCL rank (WORLD_SIZE=1): TriSpacePolyNet rw_t, batch "
+            f"{TRAIN_BATCH} of {CROP}x{CROP}, {DIST_EPOCHS} epoch")
+        (one,), one_s = run_cli_ranks(1, base + ["--model", "trispace", "--log_dirpath",
+                                                 str(tmp / "nccl")])
+        ckpts = ckpt_lib.list_checkpoints(str(tmp / "nccl" / "checkpoints"))
+        log(f"  {one_s:.1f} s: backend {one['backend']}, losses {one['losses']}, eval "
+            f"{one['eval']}, launches {one['launches']}, checkpoints {len(ckpts)}, train steps "
+            f"{[round(t, 3) for t in one['step_ms']]} ms, epoch {one['img_per_s']} img/s  [{card}]")
+        if one["backend"] != ["nccl"]:
+            raise AssertionError(f"the 1-rank run joined {one['backend']}, not nccl")
+        if len(one["losses"]) != DIST_EPOCHS or not np.isfinite(one["losses"]).all():
+            raise AssertionError(f"expected {DIST_EPOCHS} finite losses, got {one['losses']}")
+        if len(ckpts) != 1:
+            raise AssertionError(f"expected one checkpoint, found {ckpts}")
+        if one["launches"]["K1"] != steps + evals or one["launches"]["K2"] != 0:
+            raise AssertionError(f"expected {steps + evals} K1 launches and no K2")
+        result = {"nccl": one, "gloo": {}}
+        reference = {"trispace": one["losses"], "curve": phase_losses["curve"][:DIST_EPOCHS]}
+        for family, kernel in (("trispace", "K1"), ("curve", "K2")):
+            log(f"  (b) cli.main as two gloo ranks on cuda:0, {family}, global batch "
+                f"{TRAIN_BATCH} ({TRAIN_BATCH // 2} a rank)")
+            ranks, secs = run_cli_ranks(2, base + ["--model", family, "--log_dirpath",
+                                                   str(tmp / f"gloo_{family}")], backend="gloo")
+            gap = float(np.abs(np.subtract(ranks[0]["losses"], reference[family])).max())
+            agree = float(np.abs(np.subtract(ranks[0]["losses"], ranks[1]["losses"])).max())
+            for r, rec in enumerate(ranks):
+                log(f"  rank {r}: backend {rec['backend']}, losses {rec['losses']}, eval "
+                    f"{rec['eval']}, launches {rec['launches']}, train steps "
+                    f"{[round(t, 3) for t in rec['step_ms']]} ms, epoch {rec['img_per_s']} "
+                    f"img/s  [{card}]")
+            log(f"  {secs:.1f} s; ranks agree to {agree:.3e}; gap to the single-rank losses "
+                f"{reference[family]}: {gap:.3e} (bound {DIST_LOSS_ATOL})")
+            if any(rec["backend"] != ["gloo"] for rec in ranks):
+                raise AssertionError("the 2-rank run did not join over gloo")
+            if agree > RANK_AGREE_ATOL or gap > DIST_LOSS_ATOL:
+                raise AssertionError("2-rank losses disagree between ranks or with one rank")
+            if ranks[0]["params"] != ranks[1]["params"]:
+                raise AssertionError("the ranks' parameters differ at the end")
+            other = "K2" if kernel == "K1" else "K1"
+            for rec in ranks:
+                if rec["launches"][kernel] != steps + evals or rec["launches"][other] != 0:
+                    raise AssertionError(f"expected {steps + evals} {kernel} launches a rank")
+            result["gloo"][family] = ranks
+        log(f"  gloo and NCCL step times measure the transport (gloo copies through the host), "
+            f"not the model: NCCL 1 rank {one['step_ms']} ms; gloo 2 ranks "
+            f"{result['gloo']['trispace'][0]['step_ms']} ms  [{card}]")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    log(f"  (c) sharded_trispace_residual over two gloo ranks on cuda:0, {WIDTH}x{HEIGHT} "
+        f"batch {BATCH}, fp32 and the u8 wire")
+    sharded = launch.run_ranks("chip_smoke:sharded_apply_rank", 2, platform=None,
+                               backend="gloo", timeout=RANK_TIMEOUT,
+                               path=[str(Path(__file__).resolve().parent)])
+    for r, rec in enumerate(sharded):
+        log(f"  rank {r}: {rec}")
+        if (rec["launches"] != 2 or rec["fp32_max"] > 1e-6 or rec["u8_max"] > 1
+                or rec["shape"] != [BATCH, HEIGHT, WIDTH, 3] or rec["u8_dtype"] != "torch.uint8"):
+            raise AssertionError("the row-sharded apply disagrees with one K1 launch")
+    result["sharded"] = sharded
+    return result
+
+
+def coefficient_graph(torch, model, small, mask):
+    """`model.generate_coefficients` captured in a CUDA graph on static
+    copies of the inputs, after two warm-up calls on a side stream."""
+    static = (small.clone(), mask.clone())
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.inference_mode():
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                model.generate_coefficients(*static)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            model.generate_coefficients(*static)
+    torch.cuda.synchronize()
+    return graph
+
+
+def rel_l2(a, b) -> float:
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def bf16_serving(torch, dev, rng, counters, card) -> dict:
+    """Phase 13a: the polynomial model at fp32 and bf16 from the same
+    calibrated weights."""
+    from curl_tpu_torch.infer.engine import Enhancer
+    from curl_tpu_torch.models.trispace import TriSpacePolyNet
+
+    batches = [serving_batch(rng, torch) for _ in range(3)]
+    small, mask = small_view(batches[0], dev)
+    model = TriSpacePolyNet(backbone=BACKBONE, device=dev,
+                            generator=torch.Generator().manual_seed(SEED))
+    calibrate_batch_norm(model, lambda: model.generate_coefficients(small, mask))
+    models = {"fp32": model, "bf16": copy.deepcopy(model)}
+    models["bf16"].compute_dtype = torch.bfloat16
+    enhs = {k: Enhancer(m, backbone_size=PREDICT, out_u8=True) for k, m in models.items()}
+
+    with torch.inference_mode():
+        card_c = {k: torch.cat(m.generate_coefficients(small, mask)) for k, m in models.items()}
+        cpu = {k: copy.deepcopy(m).to("cpu") for k, m in models.items()}
+        cpu_c = {k: torch.cat(m.generate_coefficients(small.cpu(), mask.cpu()))
+                 for k, m in cpu.items()}
+    del cpu
+    d_card, d_cpu = rel_l2(card_c["bf16"], card_c["fp32"]), rel_l2(cpu_c["bf16"], cpu_c["fp32"])
+    log(f"  coefficients, relative L2 bf16 vs fp32: card {d_card:.4e}, CPU {d_cpu:.4e} "
+        f"(ratio {d_card / d_cpu:.3f}); card bf16 vs CPU bf16 "
+        f"{rel_l2(card_c['bf16'].cpu(), cpu_c['bf16']):.4e}")
+    if not 0.5 * d_cpu <= d_card <= 2 * d_cpu:
+        raise AssertionError("the card's bf16 coefficients are not bf16's distance from fp32")
+
+    for mod in counters.values():
+        mod.LAUNCHES = 0
+    outs16 = [enhs["bf16"].enhance_image(*b) for b in batches]
+    torch.cuda.synchronize()
+    launches = {name: mod.LAUNCHES for name, mod in counters.items()}
+    log(f"  launches on the bf16 serving path: {launches} for {len(batches)} batches")
+    if launches != {"K1": len(batches), "K2": 0}:
+        raise AssertionError(f"expected {len(batches)} K1 and no K2 launches")
+    plain16 = Enhancer(models["bf16"], backbone_size=PREDICT, out_u8=True, impl="torch")
+    check_outputs(outs16, plain16, batches, dev)
+    near, worst = [], 0
+    for out, batch in zip(outs16, batches):
+        diff = (out.int() - enhs["fp32"].enhance_image(*batch).int()).abs()
+        near.append(float((diff <= 1).float().mean()))
+        worst = max(worst, int(diff.max()))
+    log(f"  u8 bf16 vs fp32 (random rw_t weights, BN from one batch): share within 1 level "
+        f"{min(near):.6f}, max {worst}")
+    del outs16, plain16
+
+    graphs = {k: coefficient_graph(torch, m, small, mask) for k, m in models.items()}
+    chain = chain_inputs(rng, torch)
+    chained = {}
+    for k, enh in enhs.items():
+        enh.enhance_chained(*chain)
+        (chained[k],) = enh._chained.values()
+    backbone_ms = {k: [] for k in models}
+    chained_ms = {k: [] for k in models}
+    for k in BF16_TURNS:
+        backbone_ms[k].append(cuda_ms(graphs[k].replay, 20))
+        chained_ms[k].append(cuda_ms(chained[k].graph.replay, 5) / CHAIN)
+    for k in models:
+        log(f"  {k}: backbone + head rw_t {PREDICT}^2 batch {BATCH}, CUDA-graph replay "
+            f"{', '.join(f'{t:.3f}' for t in backbone_ms[k])} ms; enhance_chained K={CHAIN} "
+            f"replay {', '.join(f'{t:.3f}' for t in chained_ms[k])} ms per batch "
+            f"(turns {' '.join(BF16_TURNS)})  [{card}]")
+    return {"launches": launches["K1"], "backbone_ms": backbone_ms, "chained_ms": chained_ms,
+            "u8_within_1": min(near), "u8_max": worst, "coef_rel_l2": d_card}
+
+
+def bf16_training(torch, dev, batch, counters, card, fp32_times: dict) -> dict:
+    """Phase 13b: one polynomial train step at bf16 through K1's
+    autograd.Function against the fp32 step from the same weights (augment
+    off), then the bf16 step's times beside phase 9c's."""
+    from curl_tpu_torch.config import Config
+    from curl_tpu_torch.train import loop
+    from curl_tpu_torch.train import state as state_lib
+    from curl_tpu_torch.train import steps as steps_lib
+
+    cfg = Config(model="trispace")
+    fp32_model = loop.build_model(cfg, dev, torch.Generator().manual_seed(SEED))
+    bf16_model = copy.deepcopy(fp32_model)
+    bf16_model.compute_dtype = torch.bfloat16
+    step = steps_lib.make_train_step(cfg.ssim_window_size, augment=False)
+    losses, launches, stem = {}, {}, {}
+    for k, model in (("fp32", fp32_model), ("bf16", bf16_model)):
+        state = state_lib.TrainState(model, state_lib.make_optimizer(
+            model.parameters(), state_lib.onecycle_schedule(cfg.num_epoch, 2)))
+        hook = model.backbone.conv_stem.register_forward_hook(
+            lambda m, i, o, k=k: stem.__setitem__(k, o.dtype))
+        for mod in counters.values():
+            mod.LAUNCHES = 0
+        losses[k] = float(step(state, batch, torch.Generator(device=dev))["loss"])
+        launches[k] = {name: mod.LAUNCHES for name, mod in counters.items()}
+        hook.remove()
+    if stem != {"fp32": torch.float32, "bf16": torch.bfloat16}:
+        raise AssertionError(f"the stem convolution's output dtypes in the steps: {stem}")
+    rel = abs(losses["bf16"] - losses["fp32"]) / abs(losses["fp32"])
+    log(f"  one step, bf16 {losses['bf16']:.7f} vs fp32 {losses['fp32']:.7f} (rel {rel:.3e}, "
+        f"bound {BF16_LOSS_RTOL}); launches {launches['bf16']}")
+    if not (np.isfinite(losses["bf16"]) and rel <= BF16_LOSS_RTOL):
+        raise AssertionError("the bf16 step's loss is not finite or not near the fp32 step's")
+    if launches["bf16"]["K1"] != 1 or launches["bf16"]["K2"] != 0 or launches["bf16"]["K3"] == 0:
+        raise AssertionError("expected one K1 launch and K3 launches in the bf16 step")
+    if not all(p.dtype == torch.float32 and bool(torch.isfinite(p).all())
+               for p in bf16_model.parameters()):
+        raise AssertionError("the bf16 step left non-fp32 or non-finite parameters")
+    del fp32_model, bf16_model
+    t = time_training(Config(model="trispace", compute_dtype="bfloat16"), batch, dev)
+    log(f"  TriSpacePolyNet rw_t bf16 train step, batch {TRAIN_BATCH} of {CROP}x{CROP}, augment "
+        f"on: forward {t['forward_ms']:.3f} ms, backward {t['backward_ms']:.3f} ms, optimizer "
+        f"{t['optimizer_ms']:.3f} ms; wall {t['wall_ms']:.3f} ms/step, {t['img_per_s']:.2f} "
+        f"img/s; peak {t['peak_gib']:.2f} GiB; phase 9c fp32: forward "
+        f"{fp32_times['forward_ms']:.3f}, backward {fp32_times['backward_ms']:.3f}, optimizer "
+        f"{fp32_times['optimizer_ms']:.3f} ms, wall {fp32_times['wall_ms']:.3f} ms/step  [{card}]")
+    return {"launches": launches["bf16"]["K1"], "times": t, "rel_loss_gap": rel}
+
+
 def pil_available() -> bool:
     try:
         import PIL  # noqa: F401
@@ -1658,7 +2049,7 @@ def main() -> int:
                "synthesized by a Loader subclass, trained through Trainer (no PIL)"))
         batch = training_batch(torch, dev)
         train_counters = dict(counters, K3=clk)
-        train_times = {}
+        train_times, epoch_losses = {}, {}
         for phase, name, impl_attr, epochs in ((9, "trispace", "residual_impl", 2),
                                                (10, "curve", "curve_impl", 1)):
             cfg = Config(model=name)
@@ -1671,7 +2062,8 @@ def main() -> int:
             log("  (a) kernel step against the plain step")
             check_train_step(cfg, impl_attr, batch, train_counters, dev)
             log(f"  (b) {epochs} epoch(s) on the synthetic dataset, then auto_resume")
-            train_launches = train_and_resume(name, epochs, pil, tmp, train_counters)
+            train_launches, epoch_losses[name] = train_and_resume(name, epochs, pil, tmp,
+                                                                  train_counters)
             log("  (c) times")
             t = time_training(cfg, batch, dev)
             train_times[name] = (t, train_launches)
@@ -1712,6 +2104,23 @@ def main() -> int:
     torch.cuda.empty_cache()
     serve = serving_entry_points(torch, dev, rng, counters, pil, card)
     chained = serve["chained"]
+    torch.cuda.empty_cache()
+
+    log("phase 12: distribution, rw_t at full width")
+    if not pil:
+        raise AssertionError("phase 12 drives the training CLI on PNG files: PIL is needed")
+    dist = distribution(torch, card, epoch_losses)
+    torch.cuda.empty_cache()
+
+    log(f"phase 13: compute_dtype=bfloat16, rw_t {PREDICT}^2 predict -> {WIDTH}x{HEIGHT} batch "
+        f"{BATCH}, u8 wire; training batch {TRAIN_BATCH} of {CROP}x{CROP}")
+    log("  (a) serving")
+    bf16_serve = bf16_serving(torch, dev, rng, counters, card)
+    torch.cuda.empty_cache()
+    log("  (b) training")
+    bf16_train = bf16_training(torch, dev, batch, dict(counters, K3=clk), card,
+                               train_times["trispace"][0])
+    torch.cuda.empty_cache()
     # K3 runs only on the training paths: its launches are theirs.
     clip_launches = sum(n["K3"] for _, n in train_times.values())
 
@@ -1734,6 +2143,13 @@ def main() -> int:
             "train_ms": k_train_ms,
             "chained_launches": chained["trispace"]["launches"],
             "chained_device_ms_per_batch": chained["trispace"]["device_ms"],
+            "nccl_cli_launches": dist["nccl"]["launches"]["K1"],
+            "gloo_cli_launches": [r["launches"]["K1"] for r in dist["gloo"]["trispace"]],
+            "sharded_apply_launches": [r["launches"] for r in dist["sharded"]],
+            "bf16_serving_launches": bf16_serve["launches"],
+            "bf16_train_launches": bf16_train["launches"],
+            "fp32_backbone_ms": float(np.mean(bf16_serve["backbone_ms"]["fp32"])),
+            "bf16_backbone_ms": float(np.mean(bf16_serve["backbone_ms"]["bf16"])),
         },
         {
             "name": "fused_curve_enhance",
@@ -1753,6 +2169,7 @@ def main() -> int:
             "train_ms": c_train_ms,
             "chained_launches": chained["curve"]["launches"],
             "chained_device_ms_per_batch": chained["curve"]["device_ms"],
+            "gloo_cli_launches": [r["launches"]["K2"] for r in dist["gloo"]["curve"]],
         },
         {
             "name": "tie_clip_grad",
@@ -1778,4 +2195,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(cli_rank(sys.argv[2:]) if sys.argv[1:2] == ["--cli-rank"] else main())

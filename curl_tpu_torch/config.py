@@ -13,8 +13,12 @@ port's meaning for four of them:
     reduced-precision conv and gradient noise until training diverges.
     "default" allows TF32 in both. (The JAX names map to fp32 passes:
     torch has no 3-pass mode between TF32 and full fp32.)
-  * `compute_dtype="bfloat16"` and a device mesh (`mesh_data`,
-    `mesh_model`) are not ported yet (`check_supported`).
+  * `mesh_data` / `mesh_model`: the (data, model) mesh over the process
+    group's ranks, one process a rank (`parallel.mesh`); unset, the data
+    size is the largest rank count that divides the batch.
+
+`compute_dtype` is "float32" or "bfloat16" (the backbone and head of
+`TriSpacePolyNet`; the other models take none, as in the JAX package).
 """
 
 from __future__ import annotations
@@ -55,7 +59,7 @@ class Config:
     # the engine's bound from device memory).
     auto_tile_pixels: Optional[int] = None
     curve_impl: str = "cuda"  # cuda | torch (curve model's curve pass)
-    compute_dtype: str = "float32"  # float32 (bfloat16 is not ported yet)
+    compute_dtype: str = "float32"  # float32 | bfloat16 (TriSpacePolyNet's backbone)
     identity_init: bool = False  # start the model as the identity transform
     # Path to a timm EfficientNetV2 ImageNet state dict (.pt): initialize
     # the backbone from it before training. Heads stay freshly initialized.
@@ -83,7 +87,8 @@ class Config:
     save_images: bool = False
     keep_checkpoints: int = 5
 
-    # Parallelism (not ported yet: one process, one device)
+    # Parallelism: a (data, model) mesh over the ranks (default: every rank
+    # on the data axis that the batch divides onto)
     mesh_data: Optional[int] = None
     mesh_model: int = 1
 
@@ -97,15 +102,11 @@ class Config:
 
 
 def check_supported(cfg: Config) -> None:
-    """Raise NotImplementedError for settings the port does not have yet."""
-    if cfg.compute_dtype != "float32":
+    """Raise for settings the port does not have: a compute dtype other than
+    float32 and bfloat16 (the two the JAX package documents)."""
+    if cfg.compute_dtype not in ("float32", "bfloat16"):
         raise NotImplementedError(
-            f"compute_dtype={cfg.compute_dtype!r}: the bf16 backbone is not ported yet "
-            "(ROADMAP.md, queue item 14)"
-        )
-    if cfg.mesh_data is not None or cfg.mesh_model != 1:
-        raise NotImplementedError(
-            "mesh_data/mesh_model: distribution is not ported yet (ROADMAP.md, queue item 11)"
+            f"compute_dtype={cfg.compute_dtype!r}: the port computes in float32 or bfloat16"
         )
 
 

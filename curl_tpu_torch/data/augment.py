@@ -14,6 +14,7 @@ the transform is held to the JAX one at fixed angles and flips.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 from torch import Tensor
@@ -43,13 +44,20 @@ def rotate_nearest(stack: Tensor, angle: Tensor) -> Tensor:
 
 
 def augment_batch(
-    input_img: Tensor, output_img: Tensor, mask: Tensor, generator: torch.Generator
+    input_img: Tensor, output_img: Tensor, mask: Tensor, generator: torch.Generator,
+    row0: int = 0, global_batch: Optional[int] = None,
 ) -> tuple[Tensor, Tensor, Tensor]:
     """Per-sample random flips and rotation applied identically to the pair
     and its mask: (B,H,W,3) x2, (B,H,W,1) -> same shapes and dtype. Draws
-    three uniforms per sample from `generator` (on the batch's device)."""
+    three uniforms per sample of the global batch from `generator` (on the
+    batch's device) and uses those of rows row0 .. row0 + B: a rank holding
+    rows row0.. of a `global_batch` (default B) with an identically seeded
+    generator transforms its rows as one process would the whole batch, as
+    the JAX step draws over the global batch from one key."""
+    b = input_img.shape[0]
+    global_batch = b if global_batch is None else global_batch
     stack = torch.cat([input_img, output_img, mask.to(input_img.dtype)], dim=-1)
-    u = torch.rand(3, stack.shape[0], generator=generator, device=stack.device)
+    u = torch.rand(3, global_batch, generator=generator, device=stack.device)[:, row0:row0 + b]
     do_h = (u[0] < 0.5)[:, None, None, None]
     do_v = (u[1] < 0.5)[:, None, None, None]
     angle = (2.0 * u[2] - 1.0) * math.pi

@@ -13,7 +13,16 @@ tiny config for tests. Submodules carry timm's key names (`conv_stem`,
 `bn2`, ...), so a timm or reference state dict loads as it is. Convs use
 symmetric k//2 padding and BN eps 1e-5 (momentum 0.1). BatchNorm updates its
 running variance in training mode with the biased batch variance, as flax's
-`BatchNorm` does, where torch's own uses the unbiased one.
+`BatchNorm` does, where torch's own uses the unbiased one. With more than one
+rank in the process group, the training batch statistics are those of the
+global batch, as they are under the JAX package's sharded step.
+
+Every layer computes in its input's dtype, as the JAX modules' `dtype=x.dtype`
+does: a bf16 input runs the convolutions, the squeeze-excite, the
+activations and the MLP head in bf16 from the fp32 parameters, and BatchNorm
+computes its statistics and normalization in fp32 (flax's
+`force_float32_reductions`) and returns bf16, with fp32 running statistics.
+An fp32 input runs torch's own layers unchanged.
 
 The public layout is NHWC, as in the JAX package; `EfficientNetV2.forward`
 permutes to NCHW for the convolutions.
@@ -28,6 +37,8 @@ from typing import Optional, Sequence
 import torch
 from torch import Tensor, nn
 import torch.nn.functional as F
+
+from curl_tpu_torch.parallel import distributed
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,9 +110,30 @@ _BN_EPS = 1e-5
 _BN_MOMENTUM = 0.1
 
 
+class Conv2d(nn.Conv2d):
+    """`nn.Conv2d` that computes in its input's dtype from its fp32
+    parameters (flax's `nn.Conv(dtype=x.dtype)`)."""
+
+    def forward(self, x: Tensor) -> Tensor:
+        if x.dtype == self.weight.dtype:
+            return super().forward(x)
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
+class Linear(nn.Linear):
+    """`nn.Linear` that computes in its input's dtype from its fp32
+    parameters (flax's `nn.Dense(dtype=x.dtype)`)."""
+
+    def forward(self, x: Tensor) -> Tensor:
+        if x.dtype == self.weight.dtype:
+            return super().forward(x)
+        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+
+
 def _conv(cin: int, cout: int, k: int, stride: int = 1, groups: int = 1,
-          bias: bool = False) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, k, stride=stride, padding=k // 2, groups=groups, bias=bias)
+          bias: bool = False) -> Conv2d:
+    return Conv2d(cin, cout, k, stride=stride, padding=k // 2, groups=groups, bias=bias)
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -109,19 +141,55 @@ class BatchNorm2d(nn.BatchNorm2d):
     with the *biased* batch variance, as flax's `BatchNorm` does
     (ra_var = m * ra_var + (1 - m) * var); torch's own update scales it by
     n / (n - 1), which is a factor of 2 on a 1x1 map at batch 2.
-    Normalization, eval mode and the state dict keys are torch's."""
+    Normalization, eval mode and the state dict keys are torch's. A bf16
+    input is normalized in fp32 and returned as bf16.
+
+    Whenever the process group has more than one rank, the training
+    statistics are those of the global batch, as BN's statistics are under
+    the JAX package's sharded step (`parallel/mesh.py`). Over ranks it
+    computes flax's fp32 statistics: one sum over ranks of the packed
+    per-channel (sum, sum of squares) and the element count gives
+    mean = E[x] and var = max(E[x^2] - E[x]^2, 0), the biased variance that
+    also updates the running variance. The sum is differentiable
+    (`distributed.all_reduce_sum`: its backward sums every rank's gradient),
+    so the input gradient carries the other ranks' terms of the mean and
+    variance. torch's `nn.SyncBatchNorm` is not used: its running variance
+    is the unbiased one."""
 
     def forward(self, x: Tensor) -> Tensor:
-        if not self.training:
-            return super().forward(x)
+        if x.dtype != self.weight.dtype:
+            return self._normalize(x.to(self.weight.dtype)).to(x.dtype)
+        return self._normalize(x)
+
+    def _update_running(self, mean: Tensor, var: Tensor) -> None:
         with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
             self.num_batches_tracked.add_(1)
             m = (1.0 / float(self.num_batches_tracked) if self.momentum is None
                  else self.momentum)
             self.running_mean.lerp_(mean.to(self.running_mean.dtype), m)
             self.running_var.lerp_(var.to(self.running_var.dtype), m)
+
+    def _normalize(self, x: Tensor) -> Tensor:
+        if not self.training:
+            return super().forward(x)
+        if distributed.world_size() > 1:
+            return self._normalize_global(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+        self._update_running(mean, var)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+    def _normalize_global(self, x: Tensor) -> Tensor:
+        c = x.shape[1]
+        local = torch.cat([x.sum(dim=(0, 2, 3)), (x * x).sum(dim=(0, 2, 3)),
+                           x.new_full((1,), float(x.numel() // c))])
+        total = distributed.all_reduce_sum(local)
+        mean = total[:c] / total[2 * c]
+        var = torch.clamp(total[c:2 * c] / total[2 * c] - mean * mean, min=0.0)
+        self._update_running(mean.detach(), var.detach())
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        return ((x - mean[None, :, None, None]) * scale[None, :, None, None]
+                + self.bias[None, :, None, None])
 
 
 def _bn(ch: int) -> BatchNorm2d:
@@ -218,7 +286,7 @@ class MLPHead(nn.Sequential):
     def __init__(self, in_features: int, widths: Sequence[int]):
         layers = []
         for w in widths:
-            layers.append(nn.Linear(in_features, w))
+            layers.append(Linear(in_features, w))
             in_features = w
         super().__init__(*layers)
 

@@ -15,6 +15,7 @@ over the batch, not per image.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 from torch import Tensor
@@ -51,11 +52,15 @@ def hsv_cone(img_rgb: Tensor) -> Tensor:
     return torch.stack([val * sat * torch.cos(hue), val * sat * torch.sin(hue), val], dim=-1)
 
 
-def curl_loss(predicted: Tensor, target: Tensor, mask: Tensor, ssim_window_size: int = 11) -> Tensor:
+def curl_loss(predicted: Tensor, target: Tensor, mask: Tensor, ssim_window_size: int = 11,
+              mask_count: Optional[Tensor] = None) -> Tensor:
     """Scalar CURL loss. `predicted`/`target` are (B,H,W,3) RGB in [0,1];
-    `mask` is (B,H,W,1) in {0,1} (bool or float)."""
+    `mask` is (B,H,W,1) in {0,1} (bool or float). `mask_count` replaces the
+    batch's unmasked-pixel count as the L1 terms' normalizer: a rank holding
+    one of n equal shards of a global batch passes the global count / n, so
+    that the mean of the ranks' losses is the global batch's loss."""
     mask = mask.to(predicted.dtype)
-    unmasked = predicted.shape[-1] * torch.sum(mask)
+    unmasked = predicted.shape[-1] * (torch.sum(mask) if mask_count is None else mask_count)
     pred = predicted * mask
     tgt = target * mask
 

@@ -9,6 +9,17 @@ low resolution, apply on full resolution).
 The MLP head sits at `backbone.classifier.{i}`, as in the reference
 `TriSpaceRegNet`, so `state_dict()` keys are the reference's (and those
 written by the JAX package's `export_trispace_state_dict`).
+
+`compute_dtype="bfloat16"` is the JAX model's fast mode: the masked input is
+cast to bf16 and the backbone and head compute in bf16 from the fp32
+parameters, BatchNorm in fp32 with a bf16 output; the coefficients are cast
+back to fp32 and the apply stays fp32. The port gets this from its layers,
+which compute in their input's dtype as each flax module's `dtype=x.dtype`
+does (`models/backbone.py`), not from `torch.autocast`: autocast decides per
+op from device-specific cast lists, so its CPU and CUDA numerics differ (and
+the CPU parity tests would not cover the card's), and its region would also
+cast whatever else runs inside it. Under CPU autocast (torch 2.13) BatchNorm
+follows its input's dtype, bf16 in, bf16 out, on no cast list.
 """
 
 from __future__ import annotations
@@ -24,6 +35,7 @@ from curl_tpu_torch.models import backbone as bb
 from curl_tpu_torch.ops import enhance, poly
 
 HEAD_WIDTHS = (1024, 512, 512)
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def _resolve_cfg(backbone: Union[str, bb.BackboneCfg]) -> bb.BackboneCfg:
@@ -79,6 +91,8 @@ class TriSpacePolyNet(nn.Module):
       backbone: a BackboneCfg or config name ("efficientnetv2_rw_t", ...).
       residual_impl: "cuda" (the fused kernel; its plain version for CPU
         tensors) or "torch" for the apply path.
+      compute_dtype: "float32" or "bfloat16", the backbone and head's
+        compute dtype (the parameters stay fp32).
       identity_init: start as the identity transform (zero last-layer
         weights, `_identity_bias`).
       device: where the module lives; None means `cuda`, and raises when
@@ -96,15 +110,20 @@ class TriSpacePolyNet(nn.Module):
         spatial: bool = True,
         backbone: Union[str, bb.BackboneCfg] = "efficientnetv2_rw_t",
         residual_impl: str = "cuda",
+        compute_dtype: str = "float32",
         identity_init: bool = False,
         device: DeviceLike = None,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
         device = resolve_device(device)
+        if compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype must be one of {tuple(COMPUTE_DTYPES)}; got "
+                             f"{compute_dtype!r}")
         self.polynomial_order = polynomial_order
         self.spatial = spatial
         self.residual_impl = residual_impl
+        self.compute_dtype = COMPUTE_DTYPES[compute_dtype]
         self.num_in = self.num_channels + 2 * int(spatial)
         self.num_coeffs = poly.num_monomials(polynomial_order, self.num_in)
         cfg = _resolve_cfg(backbone)
@@ -120,12 +139,13 @@ class TriSpacePolyNet(nn.Module):
         self.to(device)
 
     def generate_coefficients(self, img: Tensor, mask: Tensor) -> tuple[Tensor, Tensor, Tensor]:
-        """Backbone and head over the masked image -> (R, L, H) coefficient
-        stacks, each (B, 3, num_coeffs) fp32. Forward convolutions run
-        without TF32 (the degree-4 polynomial amplifies coefficient error);
-        matmul TF32 stays at torch's default, off. The backward follows the
-        run's setting (`config.apply_precision`)."""
-        x = img * mask.to(img.dtype)
+        """Backbone and head over the masked image, in `compute_dtype` ->
+        (R, L, H) coefficient stacks, each (B, 3, num_coeffs) fp32. Forward
+        fp32 convolutions run without TF32 (the degree-4 polynomial
+        amplifies coefficient error); matmul TF32 stays at torch's default,
+        off. The backward follows the run's setting
+        (`config.apply_precision`). TF32 does not touch bf16 convolutions."""
+        x = (img * mask.to(img.dtype)).to(self.compute_dtype)
         with bb.fp32_convs():
             coeffs = self.backbone(x)
         coeffs = coeffs.float().reshape(

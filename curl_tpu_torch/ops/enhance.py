@@ -97,24 +97,26 @@ def trispace_enhance(
     degree: int = 4,
     spatial: bool = True,
     impl: str = "cuda",
+    tile: Optional[tuple] = None,
 ) -> Tensor:
     """Residual and composite in one call: clip(img + residual, 0, 1). The
     kernel path fuses the composite into its single pass. A uint8 image
     gives a uint8 result (the u8 wire of `ops.wire`), which the kernel reads
-    and writes itself. Whole image only: this is the deployment hot path."""
+    and writes itself. `tile` marks a full-width row band of a larger image,
+    as in `trispace_residual`."""
     _check_impl(impl)
     if impl == "cuda":
         return fused_trispace_residual(
             img, coeff_rgb, coeff_lab, coeff_hsv,
-            degree=degree, spatial=spatial, composite=True,
+            degree=degree, spatial=spatial, tile=tile, composite=True,
         )
     if img.dtype == torch.uint8:
         return wire.quantize_u8(trispace_enhance(
             wire.norm_u8(img), coeff_rgb, coeff_lab, coeff_hsv,
-            degree=degree, spatial=spatial, impl="torch",
+            degree=degree, spatial=spatial, impl="torch", tile=tile,
         ))
     res = trispace_residual(
         img, coeff_rgb, coeff_lab, coeff_hsv,
-        degree=degree, spatial=spatial, impl="torch",
+        degree=degree, spatial=spatial, impl="torch", tile=tile,
     )
     return generate_image(img, res)

@@ -6,6 +6,9 @@ A checkpoint is a directory named with its validation PSNR, loss and epoch
 and BN buffers), optimizer (Adam's moments and step counts, the applied
 count), step, epoch}. Restoring it resumes all of these bitwise; the
 learning rate is a function of the applied count and needs nothing else.
+
+Over several ranks every rank holds the same state: rank 0 writes and prunes
+while the others wait at a barrier, and every rank restores.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from typing import Optional
 
 import torch
 
+from curl_tpu_torch.parallel import distributed
 from curl_tpu_torch.train.state import TrainState
 
 log = logging.getLogger("curl_tpu_torch")
@@ -42,10 +46,13 @@ def save(
     keep: int = 5,
 ) -> str:
     """Write a checkpoint; prune to the newest `keep` by epoch, never
-    deleting the best-PSNR one. Returns its directory."""
-    path = write(os.path.join(ckpt_dir, checkpoint_name(valid_psnr, valid_loss, epoch)),
-                 state, epoch)
-    _prune(ckpt_dir, keep)
+    deleting the best-PSNR one. Returns its directory. Rank 0 writes and
+    prunes; every rank returns once it has."""
+    path = os.path.abspath(os.path.join(ckpt_dir, checkpoint_name(valid_psnr, valid_loss, epoch)))
+    if distributed.is_main():
+        write(path, state, epoch)
+        _prune(ckpt_dir, keep)
+    distributed.barrier()
     return path
 
 

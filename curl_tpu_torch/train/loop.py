@@ -2,8 +2,13 @@
 them: data loaders, the train and eval steps, logging and TensorBoard,
 validation and checkpointing.
 
-One process on one device. Distribution (several processes, DDP, SyncBN)
-is not ported yet (ROADMAP.md, queue item 11).
+One process per rank, each on its own device, over a (data, model) mesh of
+the ranks (`parallel.mesh`): every rank loads its shard of each global
+batch, and the steps reduce gradients, BatchNorm statistics, the loss and
+the eval sums over the ranks. As in the JAX package, only rank 0 writes the
+log file, the TensorBoard events, the progress bar, images and checkpoints;
+with more than one data rank the image dump is skipped, since rank 0 holds
+only its shard of the outputs.
 """
 
 from __future__ import annotations
@@ -25,6 +30,8 @@ from curl_tpu_torch.data import pipeline
 from curl_tpu_torch.device import resolve_device
 from curl_tpu_torch.export import torch_convert
 from curl_tpu_torch.models import CurlCurveNet, PolyRegNet, TriSpacePolyNet
+from curl_tpu_torch.parallel import distributed
+from curl_tpu_torch.parallel import mesh as mesh_lib
 from curl_tpu_torch.train import checkpoint as ckpt_lib
 from curl_tpu_torch.train import state as state_lib
 from curl_tpu_torch.train import steps as steps_lib
@@ -42,6 +49,7 @@ def build_model(cfg: Config, device, generator: Optional[torch.Generator] = None
             spatial=cfg.spatial,
             backbone=cfg.backbone,
             residual_impl=cfg.residual_impl,
+            compute_dtype=cfg.compute_dtype,
             identity_init=cfg.identity_init,
             device=device,
             generator=generator,
@@ -63,17 +71,20 @@ def build_model(cfg: Config, device, generator: Optional[torch.Generator] = None
 
 
 def setup_logging(log_dirpath: Optional[str]) -> str:
-    """Console and file logging under a timestamped directory (or the one
-    given). Returns the directory."""
+    """Console logging, and on rank 0 file logging, under a timestamped
+    directory (rank 0's timestamp on every rank) or the one given. Returns
+    the directory."""
     if log_dirpath is None:
         ts = datetime.datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
-        log_dirpath = f"./log_{ts}"
-    os.makedirs(log_dirpath, exist_ok=True)
+        log_dirpath = distributed.broadcast_object(f"./log_{ts}")
+    handlers: list[logging.Handler] = [logging.StreamHandler()]
+    if distributed.is_main():
+        os.makedirs(log_dirpath, exist_ok=True)
+        handlers.append(logging.FileHandler(os.path.join(log_dirpath, "curl.log")))
     logging.basicConfig(
         level=logging.INFO,
         format="%(asctime)s %(levelname)s %(message)s",
-        handlers=[logging.StreamHandler(),
-                  logging.FileHandler(os.path.join(log_dirpath, "curl.log"))],
+        handlers=handlers,
         force=True,
     )
     return log_dirpath
@@ -95,16 +106,18 @@ def save_images(batch_out: np.ndarray, names: list[str], out_dir: str, psnr=None
 
 class Evaluator:
     """Evaluation over one split: per-image loss, PSNR and MS-SSIM reduced
-    on the device, one host fetch per pass, and an optional image dump."""
+    on the device (and over the ranks of `mesh`), one host fetch per pass,
+    and an optional image dump by rank 0."""
 
     def __init__(self, cfg: Config, loader: pipeline.Loader, split_name: str, log_dirpath: str,
-                 device):
+                 device, mesh: Optional[mesh_lib.Mesh] = None):
         self.cfg = cfg
         self.loader = loader
         self.split_name = split_name
         self.log_dirpath = log_dirpath
         self.device = torch.device(device)
-        self.eval_step = steps_lib.make_eval_step(cfg.ssim_window_size)
+        self.mesh = mesh
+        self.eval_step = steps_lib.make_eval_step(cfg.ssim_window_size, mesh)
 
     def evaluate(self, state: state_lib.TrainState, epoch: int = 0,
                  save_outputs: bool = False) -> dict[str, float]:
@@ -113,6 +126,11 @@ class Evaluator:
                 names = batch.pop("name")
                 yield names, pipeline.to_device(batch, self.device)
 
+        save_outputs = save_outputs and distributed.is_main()
+        if save_outputs and self.mesh is not None and self.mesh.data > 1:
+            log.warning("skipping image dump: rank 0 holds one of the %d shards of the "
+                        "outputs", self.mesh.data)
+            save_outputs = False
         per_batch: list[dict] = []
         for names, batch in pipeline.prefetch(device_batches()):
             stats = self.eval_step(state, batch)
@@ -140,12 +158,26 @@ class Evaluator:
         return summary
 
 
+def config_mesh(cfg: Config, batch_size: int) -> mesh_lib.Mesh:
+    """The mesh `cfg` asks for over every rank: `mesh_data` x `mesh_model`,
+    or with `mesh_data` unset the largest data size that divides
+    `batch_size` (`auto_mesh`, which warns when ranks would idle). It must
+    span every rank."""
+    if cfg.mesh_data is not None:
+        mesh = mesh_lib.make_mesh(data=cfg.mesh_data, model=cfg.mesh_model)
+    else:
+        mesh = mesh_lib.auto_mesh(batch_size, model=cfg.mesh_model)
+    return mesh_lib.require_every_rank(mesh)
+
+
 class Trainer:
-    """Single-process training on `cfg.platform`'s device (cuda unless
-    "cpu"): builds the loaders, the model (weights from
-    `torch.Generator().manual_seed(cfg.seed)`), the optimizer and the steps;
-    restores `cfg.checkpoint_filepath`, or with `auto_resume` the newest
-    checkpoint in the log directory; `fit()` trains to `cfg.num_epoch`."""
+    """Training on `cfg.platform`'s device (cuda unless "cpu"), one process
+    per rank over the mesh of `config_mesh`: builds the loaders (this
+    rank's shard of each global batch), the model (weights from
+    `torch.Generator().manual_seed(cfg.seed)`, then rank 0's on every rank),
+    the optimizer and the steps; restores `cfg.checkpoint_filepath`, or with
+    `auto_resume` the newest checkpoint in the log directory; `fit()` trains
+    to `cfg.num_epoch`."""
 
     def __init__(self, cfg: Config, train_records, valid_records,
                  log_dirpath: Optional[str] = None):
@@ -154,6 +186,8 @@ class Trainer:
         self.device = resolve_device(cfg.platform)
         config_lib.apply_precision(cfg.matmul_precision)
         self.log_dirpath = setup_logging(log_dirpath or cfg.log_dirpath)
+        self.mesh = config_mesh(cfg, cfg.batch_size)
+        shard = mesh_lib.batch_sharding(self.mesh)
 
         self.train_loader = pipeline.Loader(
             train_records,
@@ -163,6 +197,7 @@ class Trainer:
             seed=cfg.seed,
             num_threads=cfg.num_workers,
             cache_mb=cfg.cache_mb,
+            **shard,
         )
         self.valid_loader = pipeline.Loader(
             valid_records,
@@ -171,6 +206,7 @@ class Trainer:
             train=False,
             num_threads=cfg.num_workers,
             cache_mb=cfg.cache_mb,
+            **shard,
         )
         if len(self.train_loader) == 0:
             raise ValueError(
@@ -183,6 +219,7 @@ class Trainer:
         if cfg.pretrained_backbone:
             self._load_pretrained_backbone(cfg.pretrained_backbone)
             log.info("initialized backbone from timm weights %s", cfg.pretrained_backbone)
+        mesh_lib.replicated(self.model)
         self.schedule = state_lib.onecycle_schedule(
             cfg.num_epoch,
             len(self.train_loader),
@@ -202,16 +239,18 @@ class Trainer:
             resume_path = ckpt_lib.latest_checkpoint(self.ckpt_dir)
         if resume_path:
             self.state, self.start_epoch = ckpt_lib.restore(resume_path, self.state)
+            mesh_lib.replicated(self.model)
             log.info("restored checkpoint %s at epoch %d", resume_path, self.start_epoch)
 
         self.train_step = steps_lib.make_train_step(
             ssim_window=cfg.ssim_window_size,
             augment=cfg.augment,
             reg_weight=cfg.curve_reg_weight,
+            mesh=self.mesh,
         )
         self.evaluator = Evaluator(cfg, self.valid_loader, "valid", self.log_dirpath,
-                                   self.device)
-        self.writer = self._make_writer()
+                                   self.device, self.mesh)
+        self.writer = self._make_writer() if distributed.is_main() else None
         log.info("params: %.2fM", state_lib.param_count(self.state) / 1e6)
 
     def _load_pretrained_backbone(self, pt_path: str) -> None:
@@ -234,7 +273,7 @@ class Trainer:
         for epoch in range(self.start_epoch, cfg.num_epoch):
             profile_ctx = (
                 profiling.trace(cfg.profile_dir)
-                if cfg.profile_dir and epoch == self.start_epoch
+                if cfg.profile_dir and epoch == self.start_epoch and distributed.is_main()
                 else contextlib.nullcontext()
             )
             self.train_loader.set_epoch(epoch)
@@ -242,7 +281,8 @@ class Trainer:
             try:
                 from tqdm import tqdm
 
-                pbar = tqdm(total=len(self.train_loader), leave=False, desc=f"epoch {epoch + 1}")
+                pbar = tqdm(total=len(self.train_loader), leave=False, desc=f"epoch {epoch + 1}",
+                            disable=not distributed.is_main())
             except ImportError:
                 pbar = None
 

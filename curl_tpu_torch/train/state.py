@@ -16,6 +16,13 @@ Everything runs on the parameters' device without a host sync: the guard
 hands its flag to the fused Adam kernel (`found_inf`, the hook
 `torch.amp.GradScaler` uses), and the learning rate is a device tensor
 computed from the device-side count.
+
+Over several ranks the gradients are averaged before the clip and the guard,
+as GSPMD's all-reduce precedes optax in the JAX step: one sum over ranks of
+the flat gradient vector the guard already builds, not a DDP wrapper. So
+every rank applies the same update, and the model and its state dict stay
+unwrapped (no `module.` prefix), which lets a checkpoint move between rank
+counts.
 """
 
 from __future__ import annotations
@@ -26,6 +33,8 @@ from typing import Callable, Iterable, Union
 
 import torch
 from torch import Tensor, nn
+
+from curl_tpu_torch.parallel import distributed
 
 Schedule = Callable[[Union[int, Tensor]], Tensor]
 
@@ -106,6 +115,10 @@ class Optimizer:
         grads = [p.grad for p in self.params if p.grad is not None]
         self.adam.param_groups[0]["lr"].copy_(self.schedule(self.count))
         flat = torch.cat([g.reshape(-1) for g in grads])
+        if distributed.world_size() > 1:
+            distributed.all_reduce_mean_(flat)
+            torch._foreach_copy_(grads, [v.view_as(g) for v, g in
+                                         zip(flat.split([g.numel() for g in grads]), grads)])
         if self.guard_nonfinite:
             finite = torch.isfinite(flat).all()
             self.adam.found_inf = (~finite).float()

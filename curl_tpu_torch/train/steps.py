@@ -5,6 +5,17 @@ normalization, the forward pass in training mode, the loss (plus the curve
 model's smoothness term), the backward pass and the guarded optimizer
 update. It returns the loss as a device scalar and syncs nothing. An eval
 step reduces per-image loss, PSNR and MS-SSIM to sums on the device.
+
+Over several ranks (`parallel.mesh`) each holds its shard of the global
+batch, and a step computes what the JAX step computes on the whole batch:
+the augmentation draws are the global batch's (`augment.augment_batch`),
+BatchNorm's statistics are global (`backbone.BatchNorm2d`), the loss's
+L1 terms are normalized by the global unmasked count so that the ranks'
+mean loss is the global loss, and the optimizer averages the gradients over
+ranks (`state.Optimizer`) before its clip and guard. The loss returned is
+that mean. An eval step counts the rows of the global batch that are real
+(`valid_count`) at the rank's offset, and `stack_eval_totals` sums the
+ranks' totals.
 """
 
 from __future__ import annotations
@@ -19,6 +30,8 @@ from curl_tpu_torch.data import augment as aug
 from curl_tpu_torch.models import losses, metrics
 from curl_tpu_torch.ops import ssim as ssim_ops
 from curl_tpu_torch.ops import wire
+from curl_tpu_torch.parallel import distributed
+from curl_tpu_torch.parallel.mesh import Mesh
 from curl_tpu_torch.train.state import TrainState
 
 
@@ -36,14 +49,22 @@ def _split_model_output(out) -> tuple[Tensor, Optional[Tensor]]:
     return out, None
 
 
+def _first_row(mesh: Optional[Mesh], local_batch: int) -> int:
+    """The global batch row of this rank's first row."""
+    return 0 if mesh is None else mesh.data_index() * local_batch
+
+
 def make_train_step(
-    ssim_window: int = 11, augment: bool = True, reg_weight: float = 1e-4
+    ssim_window: int = 11, augment: bool = True, reg_weight: float = 1e-4,
+    mesh: Optional[Mesh] = None,
 ) -> Callable[[TrainState, dict, torch.Generator], dict]:
     """Returns `train_step(state, batch, generator) -> {"loss": scalar}`,
     which updates `state` in place. `batch` holds device tensors
-    input_img/output_img/mask; `generator` (on their device) drives the
-    augmentation. For models that return a smoothness regularizer, its batch
-    mean joins the loss scaled by `reg_weight`."""
+    input_img/output_img/mask, this rank's shard of the global batch under
+    `mesh` (default: one process); `generator` (on their device, seeded
+    alike on every rank) drives the augmentation. For models that return a
+    smoothness regularizer, its batch mean joins the loss scaled by
+    `reg_weight`."""
 
     def train_step(state: TrainState, batch: dict, generator: torch.Generator) -> dict:
         # Augment before normalizing: on the u8 wire the flip and rotate
@@ -51,35 +72,48 @@ def make_train_step(
         # permutation, so the values are the same in either order.
         inp, out, mask = batch["input_img"], batch["output_img"], batch["mask"]
         if augment:
-            inp, out, mask = aug.augment_batch(inp, out, mask, generator)
+            b = inp.shape[0]
+            inp, out, mask = aug.augment_batch(
+                inp, out, mask, generator, _first_row(mesh, b),
+                b * (1 if mesh is None else mesh.data))
         inp, out, mask = _normalize_batch(inp, out, mask)
 
         state.model.train()
         enhanced, reg = _split_model_output(state.model(inp, mask))
-        loss = losses.curl_loss(enhanced, out, mask, ssim_window_size=ssim_window)
+        mask_count = None
+        if distributed.world_size() > 1:
+            mask_count = distributed.all_reduce_mean_(torch.sum(mask.to(enhanced.dtype)))
+        loss = losses.curl_loss(enhanced, out, mask, ssim_window_size=ssim_window,
+                                mask_count=mask_count)
         if reg is not None:
             loss = loss + reg_weight * torch.mean(reg)
         state.optimizer.zero_grad()
         loss.backward()
         state.optimizer.step()
         state.step += 1
-        return {"loss": loss.detach()}
+        return {"loss": distributed.all_reduce_mean_(loss.detach().clone())}
 
     return train_step
 
 
-def make_eval_step(ssim_window: int = 11) -> Callable[[TrainState, dict], dict]:
+def make_eval_step(ssim_window: int = 11,
+                   mesh: Optional[Mesh] = None) -> Callable[[TrainState, dict], dict]:
     """Returns `eval_step(state, batch) -> stats`: sums over the batch's
-    valid examples (rows at or past `valid_count` are wrapped padding) of
-    the per-image loss, PSNR (finite values only) and MS-SSIM, their counts,
-    and the enhanced images with per-image PSNR and MS-SSIM. All on the
-    device."""
+    valid examples (rows of the global batch at or past `valid_count` are
+    wrapped padding; this rank's shard starts at its data index times its
+    batch) of the per-image loss, PSNR (finite values only) and MS-SSIM,
+    their counts, and the enhanced images with per-image PSNR and MS-SSIM.
+    All on the device. A rank at model index > 0 repeats a shard that model
+    index 0 holds and counts no row, so sums over every rank count each
+    example once."""
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: dict) -> dict:
         inp, out, mask = _normalize_batch(batch["input_img"], batch["output_img"], batch["mask"])
         b = inp.shape[0]
-        valid = (torch.arange(b, device=inp.device) < int(batch["valid_count"])).float()
+        rows = torch.arange(b, device=inp.device) + _first_row(mesh, b)
+        counted = mesh is None or mesh.model_index() == 0
+        valid = ((rows < int(batch["valid_count"])) & counted).float()
 
         state.model.eval()
         enhanced, _ = _split_model_output(state.model(inp, mask))
@@ -118,14 +152,14 @@ def make_eval_step(ssim_window: int = 11) -> Callable[[TrainState, dict], dict]:
 def stack_eval_totals(per_batch: list[dict]) -> dict[str, float]:
     """Per-batch device stat scalars -> host float64 totals in one fetch:
     every batch's scalars are stacked into one (batches, keys) tensor,
-    copied to the host once, and summed there in float64 (chained fp32 adds
-    drift on large splits)."""
+    summed over ranks, copied to the host once, and summed there in float64
+    (chained fp32 adds drift on large splits)."""
     if not per_batch:
         return {}
     keys = sorted(per_batch[0])
-    stacked = torch.stack([
+    stacked = distributed.all_reduce_sum(torch.stack([
         torch.stack([torch.as_tensor(b[k], dtype=torch.float32) for k in keys]) for b in per_batch
-    ])
+    ]))
     host = stacked.cpu().numpy().astype(np.float64)
     return {k: float(host[:, j].sum()) for j, k in enumerate(keys)}
 

@@ -105,8 +105,8 @@ def test_no_cpu_fallback(mini, tmp_path, monkeypatch):
 
 
 def test_unported_settings_raise(mini, tmp_path):
-    with pytest.raises(NotImplementedError, match="bf16"):
-        Trainer(_cfg(tmp_path, compute_dtype="bfloat16"), _records(mini, "train"),
+    with pytest.raises(NotImplementedError, match="float16"):
+        Trainer(_cfg(tmp_path, compute_dtype="float16"), _records(mini, "train"),
                 _records(mini, "valid"))
 
 

@@ -1,5 +1,5 @@
-"""Import hygiene of the port: `curl_tpu_torch` and `chip_smoke.py` import
-torch and never jax, flax or the JAX package (only the port's tests import
+"""Import hygiene of the port: `curl_tpu_torch`, `chip_smoke.py` and
+`__graft_entry_torch__.py` import torch and never jax, flax or the JAX package (only the port's tests import
 both)."""
 
 import re
@@ -39,6 +39,11 @@ MODULES = [
     "curl_tpu_torch.ops.kernels.clip_kernel",
     "curl_tpu_torch.ops.kernels.curve_kernel",
     "curl_tpu_torch.ops.kernels.trispace_kernel",
+    "curl_tpu_torch.parallel",
+    "curl_tpu_torch.parallel.distributed",
+    "curl_tpu_torch.parallel.launch",
+    "curl_tpu_torch.parallel.mesh",
+    "curl_tpu_torch.parallel.spatial",
     "curl_tpu_torch.models",
     "curl_tpu_torch.models.backbone",
     "curl_tpu_torch.models.curl_curve",
@@ -62,6 +67,7 @@ MODULES = [
     "curl_tpu_torch.utils",
     "curl_tpu_torch.utils.imageio",
     "curl_tpu_torch.utils.profiling",
+    "__graft_entry_torch__",
 ]
 
 
@@ -83,7 +89,8 @@ def test_importing_the_port_loads_no_jax():
     assert proc.stdout.strip() == "", f"modules of the JAX stack loaded: {proc.stdout}"
 
 
-_SOURCES = sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"]
+_SOURCES = sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                             REPO / "__graft_entry_torch__.py"]
 
 
 @pytest.mark.parametrize("path", _SOURCES, ids=lambda p: str(p.relative_to(REPO)))

@@ -304,10 +304,11 @@ def test_config_flags_and_unported_settings():
     assert cfg.model == "curve" and cfg.augment is False and cfg.mesh_data == 2
     assert cfg.residual_impl == cfg.curve_impl == "cuda" and cfg.matmul_precision == "high"
     assert cfg.platform == "cpu"
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tconfig.check_supported(cfg)
-    with pytest.raises(NotImplementedError, match="bf16"):
-        tconfig.check_supported(tconfig.Config(compute_dtype="bfloat16"))
+    # A mesh and the bf16 backbone are ported; only other compute dtypes raise.
+    tconfig.check_supported(cfg)
+    tconfig.check_supported(tconfig.Config(compute_dtype="bfloat16", mesh_model=2))
+    with pytest.raises(NotImplementedError, match="float16"):
+        tconfig.check_supported(tconfig.Config(compute_dtype="float16"))
     saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
     try:
         tconfig.apply_precision("default")
