@@ -136,10 +136,18 @@ Phases, each of which fails the run:
          convolution) within 5% of the fp32 step's loss from the same
          weights, fp32 parameters after it; then the
          bf16 step's times beside phase 9c's.
+ 14. The plain residual's two polynomial forms (`form="acc"` and "matmul",
+     the stacked basis and one cuBLAS product without TF32) and K1 on the
+     same batch 8 of 512x512 fp32 (one chunk, so the matmul form runs): the
+     forms' polynomial outputs within 1e-5 of each other in every space, the
+     three residuals within 2e-4 of each other; their CUDA-event times and
+     the plain forms' peak memory.
 
 The kernels' record carries, besides each kernel's main-path launches and
 times, the launches of phases 12 and 13 and the backbone + head replay times
-at fp32 and bf16 (`fp32_backbone_ms`, `bf16_backbone_ms`). The last two lines
+at fp32 and bf16 (`fp32_backbone_ms`, `bf16_backbone_ms`), and phase 14's
+times at 512x512 batch 8 (`ms_512`, `plain_acc_ms_512`, `plain_matmul_ms_512`).
+The last two lines
 before the final one are the kernels' JSON record and the card's
 `name, power.limit`; the final line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -250,6 +258,16 @@ RANK_TIMEOUT = 900.0
 # dtype do not.
 BF16_LOSS_RTOL = 5e-2
 BF16_TURNS = ("fp32", "bf16", "bf16", "fp32")
+
+
+# Phase 14: the plain path's two polynomial forms against K1. 512x512 is the
+# largest square the 2^18-pixel chunk bound leaves in one chunk, so the
+# matmul form runs (its stacked basis: 126 x 8 x 262,144 x 4 B = 1.06 GB a
+# space). The forms differ only in the polynomial's summation order: held to
+# FORM_TOL there; the residual's Lab and HSV back-conversions amplify that
+# (2.2e-5 at 256^2 batch 8 on the CPU), so residuals are held to FP32_TOL.
+FORM_BATCH, FORM_SIDE = 8, 512
+FORM_TOL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -1812,6 +1830,57 @@ def bf16_training(torch, dev, batch, counters, card, fp32_times: dict) -> dict:
     return {"launches": launches["bf16"]["K1"], "times": t, "rel_loss_gap": rel}
 
 
+def residual_forms(torch, tk, dev, rng, card) -> dict:
+    """Phase 14: the plain tri-space residual in its accumulation and
+    matmul forms and K1 on the same 512x512 batch 8 fp32 inputs; the forms'
+    polynomials within FORM_TOL of each other in every space, the three
+    residuals within FP32_TOL of each other; device times and peak memory."""
+    from curl_tpu_torch.ops import color, coords, enhance, poly
+
+    if FORM_SIDE * FORM_SIDE > poly._DEFAULT_CHUNK:
+        raise AssertionError("phase 14's image must fit one chunk, or the matmul form falls back")
+    img = image(rng, FORM_BATCH, FORM_SIDE, FORM_SIDE, dev)
+    cs = coefficients(rng, FORM_BATCH, 126, dev)
+    poly_err = {}
+    with torch.no_grad():
+        for name, space, cf in (("rgb", img, cs[0]), ("lab", color.rgb_to_lab(img), cs[1]),
+                                ("hsv", color.rgb_to_hsv(img), cs[2])):
+            x = coords.cat_coords(space)
+            poly_err[name] = float((poly.poly_apply(x, cf, form="acc")
+                                    - poly.poly_apply(x, cf, form="matmul")).abs().max())
+        del x, space
+
+        def plain(form):
+            return lambda: enhance.trispace_residual(img, *cs, impl="torch", form=form)
+
+        peak, out = {}, {}
+        for form in ("acc", "matmul"):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            out[form] = plain(form)()
+            torch.cuda.synchronize()
+            peak[form] = (torch.cuda.max_memory_allocated() - base) / 2**30
+        out["K1"] = tk.fused_trispace_residual(img, *cs)
+        err = {f"{a}-{b}": float((out[a] - out[b]).abs().max())
+               for a, b in (("matmul", "acc"), ("K1", "acc"), ("K1", "matmul"))}
+        del out
+        log(f"  polynomial outputs, matmul vs acc form, max abs per space: {poly_err} "
+            f"(bound {FORM_TOL})")
+        log(f"  residuals, max abs: {err} (bound {FP32_TOL})")
+        bad = {k: v for k, v in poly_err.items() if not v <= FORM_TOL}
+        bad.update({k: v for k, v in err.items() if not v <= FP32_TOL})
+        if bad:
+            raise AssertionError(f"phase 14 out of bounds: {bad}")
+        ms = {"acc": cuda_ms(plain("acc"), 5, warmup=1),
+              "matmul": cuda_ms(plain("matmul"), 5, warmup=1),
+              "K1": cuda_ms(lambda: tk.fused_trispace_residual(img, *cs), 20)}
+    log(f"  fp32 residual, batch {FORM_BATCH} of {FORM_SIDE}x{FORM_SIDE}: plain acc form "
+        f"{ms['acc']:.3f} ms (peak {peak['acc']:.2f} GiB), plain matmul form "
+        f"{ms['matmul']:.3f} ms (peak {peak['matmul']:.2f} GiB), K1 {ms['K1']:.3f} ms  [{card}]")
+    return {"ms": ms, "peak_gib": peak, "poly_err": poly_err, "err": err}
+
+
 def pil_available() -> bool:
     try:
         import PIL  # noqa: F401
@@ -2121,6 +2190,10 @@ def main() -> int:
     bf16_train = bf16_training(torch, dev, batch, dict(counters, K3=clk), card,
                                train_times["trispace"][0])
     torch.cuda.empty_cache()
+    log(f"phase 14: the plain residual's acc and matmul forms against K1, batch {FORM_BATCH} "
+        f"of {FORM_SIDE}x{FORM_SIDE} fp32")
+    forms = residual_forms(torch, tk, dev, rng, card)
+    torch.cuda.empty_cache()
     # K3 runs only on the training paths: its launches are theirs.
     clip_launches = sum(n["K3"] for _, n in train_times.values())
 
@@ -2150,6 +2223,9 @@ def main() -> int:
             "bf16_train_launches": bf16_train["launches"],
             "fp32_backbone_ms": float(np.mean(bf16_serve["backbone_ms"]["fp32"])),
             "bf16_backbone_ms": float(np.mean(bf16_serve["backbone_ms"]["bf16"])),
+            "ms_512": forms["ms"]["K1"],
+            "plain_acc_ms_512": forms["ms"]["acc"],
+            "plain_matmul_ms_512": forms["ms"]["matmul"],
         },
         {
             "name": "fused_curve_enhance",

@@ -1,5 +1,5 @@
 """Weight conversion into the port's models, and the deployment exports
-(`torch_export`, `mobile`)."""
+(`torch_export`, `mobile`, `tflite`)."""
 
 from curl_tpu_torch.export.torch_convert import (
     convert_timm_backbone_state_dict,

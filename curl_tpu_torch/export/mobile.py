@@ -5,8 +5,9 @@ The deployment contract splits at its natural seam:
 
   * The **coefficient predictor** (backbone + head: a fixed (1, S, S) view ->
     3 spaces x 3 channels x N polynomial coefficients) is exported with
-    `torch.export` at that one shape and written as `<stem>_predictor.pt2`
-    (the JAX package writes a TFLite flatbuffer there).
+    `torch.export` at that one shape and written as `<stem>_predictor.pt2`,
+    or lowered to a TFLite flatbuffer, `<stem>_predictor.tflite`, as the JAX
+    package writes it (`export/tflite.py`; needs TensorFlow).
   * The **apply** (the per-pixel tri-space polynomial transform) is pure
     closed-form arithmetic on (r, g, b, x/W, y/H) with 3x3xN scalars. It is
     emitted as dependency-free portable C99 from this package's own monomial
@@ -34,6 +35,7 @@ import numpy as np
 import torch
 from torch import Tensor, nn
 
+from curl_tpu_torch.export import tflite
 from curl_tpu_torch.models import backbone as bb
 from curl_tpu_torch.ops import color, poly
 from curl_tpu_torch.ops import color_planes as cp
@@ -349,16 +351,20 @@ class _Predictor(nn.Module):
         return torch.stack(self.model.generate_coefficients(img, mask), dim=1)
 
 
-def export_predictor(model: nn.Module, out_path: str, backbone_size: int = 320) -> str:
-    """Export the coefficient predictor of `model` (a TriSpacePolyNet, in
-    eval mode, on its own device) at the fixed (1, S, S) input with
-    `torch.export`, and write it to `out_path` (`.pt2`)."""
+def predictor_program(model: nn.Module, backbone_size: int = 320) -> torch.export.ExportedProgram:
+    """The coefficient predictor of `model` (a TriSpacePolyNet, in eval
+    mode, on its own device) captured with `torch.export` at the fixed
+    (1, S, S) input."""
     device = next(model.parameters()).device
     s = backbone_size
     args = (torch.zeros(1, s, s, 3, device=device), torch.ones(1, s, s, 1, device=device))
     with torch.no_grad():
-        program = torch.export.export(_Predictor(model.eval()), args)
-    torch.export.save(program, out_path)
+        return torch.export.export(_Predictor(model.eval()), args)
+
+
+def export_predictor(model: nn.Module, out_path: str, backbone_size: int = 320) -> str:
+    """Write the coefficient predictor of `model` to `out_path` (`.pt2`)."""
+    torch.export.save(predictor_program(model, backbone_size), out_path)
     return out_path
 
 
@@ -375,18 +381,41 @@ def run_predictor(path: str, img: np.ndarray, mask: np.ndarray) -> np.ndarray:
     return out.cpu().numpy()
 
 
+def export_predictor_tflite(model: nn.Module, out_path: str, backbone_size: int = 320) -> str:
+    """Write the coefficient predictor of `model` (from a CPU copy) as a
+    TFLite flatbuffer: inputs img (1, S, S, 3) and mask (1, S, S, 1),
+    output (1, 3, 3, N). Needs TensorFlow."""
+    return tflite.write_program(predictor_program(tflite.cpu_copy(model), backbone_size),
+                                out_path)
+
+
+def run_predictor_tflite(path: str, img: np.ndarray, mask: np.ndarray) -> np.ndarray:
+    """Run the TFLite predictor with the TFLite interpreter -> (1, 3, 3, N)."""
+    return tflite.run_interpreter(path, {"img": img, "mask": mask})
+
+
+PREDICTORS = {"pt2": (export_predictor, run_predictor),
+              "tflite": (export_predictor_tflite, run_predictor_tflite)}
+
+
 def export_mobile_bundle(
     model: nn.Module,
     out_stem: str,
     backbone_size: int = 320,
     extra_meta: Optional[dict] = None,
+    predictor: str = "pt2",
 ) -> str:
-    """Predictor .pt2 + apply .c + manifest: the any-resolution mobile
-    artifact set. Returns the manifest path."""
+    """Predictor + apply .c + manifest: the any-resolution mobile artifact
+    set. The predictor is `<stem>_predictor.pt2` (`torch.export`) or, with
+    `predictor="tflite"`, `<stem>_predictor.tflite` as the JAX package
+    writes it. Returns the manifest path."""
+    if predictor not in PREDICTORS:
+        raise ValueError(f"predictor must be one of {tuple(PREDICTORS)}; got {predictor!r}")
     degree = model.polynomial_order
     spatial = model.spatial
     n = poly.num_monomials(degree, 3 + 2 * int(spatial))
-    predictor_path = export_predictor(model, f"{out_stem}_predictor.pt2", backbone_size)
+    export_fn, _ = PREDICTORS[predictor]
+    predictor_path = export_fn(model, f"{out_stem}_predictor.{predictor}", backbone_size)
     c_path = f"{out_stem}_apply.c"
     with open(c_path, "w") as f:
         f.write(generate_apply_c(degree, spatial))
@@ -428,15 +457,19 @@ def smoke_test_bundle(
     target_hws=((97, 53), (40, 121)),
     atol: float = 2e-3,
 ) -> float:
-    """End-to-end artifact check: the exported predictor, then the compiled
-    C apply on the host, against the model's own forward on its device, at
-    several odd resolutions. Returns the max abs error; raises past `atol`."""
+    """End-to-end artifact check: the bundle's predictor (`.pt2` or
+    `.tflite`, as its manifest names it), then the compiled C apply on the
+    host, against the model's own forward on its device, at several odd
+    resolutions. Returns the max abs error; raises past `atol`."""
     device = next(model.parameters()).device
     rng = np.random.default_rng(0)
     s = backbone_size
     img = rng.uniform(0, 1, (1, s, s, 3)).astype(np.float32)
     mask = np.ones((1, s, s, 1), np.float32)
-    coeffs = run_predictor(f"{out_stem}_predictor.pt2", img, mask)
+    with open(f"{out_stem}_manifest.json") as f:
+        predictor_file = json.load(f)["predictor"]["file"]
+    _, run_fn = PREDICTORS[predictor_file.rsplit(".", 1)[-1]]
+    coeffs = run_fn(os.path.join(os.path.dirname(out_stem), predictor_file), img, mask)
     worst = 0.0
     with tempfile.TemporaryDirectory() as td:
         lib = compile_apply(f"{out_stem}_apply.c", os.path.join(td, "apply.so"))

@@ -13,9 +13,10 @@ first, which registers them.
 
 from __future__ import annotations
 
-from torch import Tensor, nn
+from typing import Optional
 
 import torch
+from torch import Tensor, nn
 
 from curl_tpu_torch.models import backbone as bb
 
@@ -36,25 +37,26 @@ class _Forward(nn.Module):
 def export_enhancer(
     model: nn.Module,
     backbone_size: int = 320,
-    variable_target: bool = True,
+    target_hw: Optional[tuple[int, int]] = None,
 ) -> torch.export.ExportedProgram:
     """Export `f(img, mask, target) -> enhanced` of `model` (in eval mode,
     on its own device, weights baked in).
 
     img: (1, S, S, 3) fp32; mask: (1, S, S, 1) fp32; target: (1, H, W, 3)
-    fp32, with H and W symbolic when `variable_target`, else (1, S, S, 3)."""
+    fp32, with H and W symbolic, or fixed at `target_hw` when it is given
+    (the TFLite export's static shapes)."""
     device = next(model.parameters()).device
     s = backbone_size
     img = torch.zeros(1, s, s, 3, device=device)
     mask = torch.ones(1, s, s, 1, device=device)
     dynamic = None
-    if variable_target:
+    if target_hw is None:
         # Example sizes apart from S and each other, so no guard ties them.
         target = torch.zeros(1, s + 16, s + 48, 3, device=device)
         dims = {1: torch.export.Dim("h", min=2), 2: torch.export.Dim("w", min=2)}
         dynamic = {"img": None, "mask": None, "target": dims}
     else:
-        target = torch.zeros(1, s, s, 3, device=device)
+        target = torch.zeros(1, *target_hw, 3, device=device)
     with torch.no_grad():
         return torch.export.export(_Forward(model.eval()), (img, mask, target),
                                    dynamic_shapes=dynamic)

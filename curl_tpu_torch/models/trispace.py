@@ -91,6 +91,9 @@ class TriSpacePolyNet(nn.Module):
       backbone: a BackboneCfg or config name ("efficientnetv2_rw_t", ...).
       residual_impl: "cuda" (the fused kernel; its plain version for CPU
         tensors) or "torch" for the apply path.
+      residual_form: the plain path's polynomial form, "auto" (= "acc", the
+        accumulation) or "matmul" (the stacked basis and one product, kept
+        for measurement as in the JAX model); the kernel ignores it.
       compute_dtype: "float32" or "bfloat16", the backbone and head's
         compute dtype (the parameters stay fp32).
       identity_init: start as the identity transform (zero last-layer
@@ -114,6 +117,7 @@ class TriSpacePolyNet(nn.Module):
         identity_init: bool = False,
         device: DeviceLike = None,
         generator: Optional[torch.Generator] = None,
+        residual_form: str = "auto",
     ):
         super().__init__()
         device = resolve_device(device)
@@ -123,6 +127,10 @@ class TriSpacePolyNet(nn.Module):
         self.polynomial_order = polynomial_order
         self.spatial = spatial
         self.residual_impl = residual_impl
+        if residual_form not in ("auto",) + poly.FORMS:
+            raise ValueError(f"residual_form must be 'auto' or one of {poly.FORMS}; got "
+                             f"{residual_form!r}")
+        self.residual_form = "acc" if residual_form == "auto" else residual_form
         self.compute_dtype = COMPUTE_DTYPES[compute_dtype]
         self.num_in = self.num_channels + 2 * int(spatial)
         self.num_coeffs = poly.num_monomials(polynomial_order, self.num_in)
@@ -169,7 +177,7 @@ class TriSpacePolyNet(nn.Module):
         residual = enhance.trispace_residual(
             apply_img, coeff_rgb, coeff_lab, coeff_hsv,
             degree=self.polynomial_order, spatial=self.spatial,
-            impl=self.residual_impl,
+            impl=self.residual_impl, form=self.residual_form,
         )
         if return_residual:
             return residual

@@ -32,14 +32,14 @@ def _check_impl(impl: str) -> None:
 
 
 def _space_residual(img_space: Tensor, cf: Tensor, degree: int, spatial: bool,
-                    tile: tuple) -> Tensor:
+                    tile: tuple, form: str) -> Tensor:
     if spatial:
         row0, col0, th, tw = tile
         img_space = coords.cat_coords(
             img_space, row_offset=row0, col_offset=col0,
             total_height=th, total_width=tw,
         )
-    return torch.sigmoid(poly.poly_apply(img_space, cf, degree=degree, num_out=3))
+    return torch.sigmoid(poly.poly_apply(img_space, cf, degree=degree, num_out=3, form=form))
 
 
 def trispace_residual(
@@ -52,6 +52,7 @@ def trispace_residual(
     spatial: bool = True,
     impl: str = "cuda",
     tile: Optional[tuple] = None,
+    form: str = "acc",
 ) -> Tensor:
     """Enhancement residual in [-3, 3]: (B,H,W,3) RGB + 3x (B,3,N) coeffs.
 
@@ -59,7 +60,9 @@ def trispace_residual(
     sigmoid, convert Lab/HSV results back to RGB, rescale each to [-1,1]
     and sum. `tile` = (row_offset, col_offset, total_h, total_w) marks the
     image as a band of a larger one, so the coordinate planes use global
-    positions. Math runs in fp32; the result is stored in img's dtype.
+    positions. `form` is the plain path's polynomial form
+    (`poly.poly_apply`); the kernel ignores it. Math runs in fp32; the
+    result is stored in img's dtype.
     """
     _check_impl(impl)
     if tile is None:
@@ -71,12 +74,12 @@ def trispace_residual(
         )
     in_dtype = img.dtype
     img = img.float()
-    rgb_res = _space_residual(img, coeff_rgb, degree, spatial, tile)
+    rgb_res = _space_residual(img, coeff_rgb, degree, spatial, tile, form)
     lab_res = color.lab_to_rgb(
-        _space_residual(color.rgb_to_lab(img), coeff_lab, degree, spatial, tile)
+        _space_residual(color.rgb_to_lab(img), coeff_lab, degree, spatial, tile, form)
     )
     hsv_res = color.hsv_to_rgb(
-        _space_residual(color.rgb_to_hsv(img), coeff_hsv, degree, spatial, tile)
+        _space_residual(color.rgb_to_hsv(img), coeff_hsv, degree, spatial, tile, form)
     )
     return (
         2.0 * (rgb_res - 0.5) + 2.0 * (lab_res - 0.5) + 2.0 * (hsv_res - 0.5)
@@ -98,12 +101,12 @@ def trispace_enhance(
     spatial: bool = True,
     impl: str = "cuda",
     tile: Optional[tuple] = None,
+    form: str = "acc",
 ) -> Tensor:
     """Residual and composite in one call: clip(img + residual, 0, 1). The
     kernel path fuses the composite into its single pass. A uint8 image
     gives a uint8 result (the u8 wire of `ops.wire`), which the kernel reads
-    and writes itself. `tile` marks a full-width row band of a larger image,
-    as in `trispace_residual`."""
+    and writes itself. `tile` and `form` are as in `trispace_residual`."""
     _check_impl(impl)
     if impl == "cuda":
         return fused_trispace_residual(
@@ -113,10 +116,10 @@ def trispace_enhance(
     if img.dtype == torch.uint8:
         return wire.quantize_u8(trispace_enhance(
             wire.norm_u8(img), coeff_rgb, coeff_lab, coeff_hsv,
-            degree=degree, spatial=spatial, impl="torch", tile=tile,
+            degree=degree, spatial=spatial, impl="torch", tile=tile, form=form,
         ))
     res = trispace_residual(
         img, coeff_rgb, coeff_lab, coeff_hsv,
-        degree=degree, spatial=spatial, impl="torch", tile=tile,
+        degree=degree, spatial=spatial, impl="torch", tile=tile, form=form,
     )
     return generate_image(img, res)

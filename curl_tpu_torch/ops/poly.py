@@ -11,9 +11,12 @@ color channels and the two normalized coordinates):
   * `monomial_chain(degree, num_vars)`: an incremental plan in which every
     monomial is a lower one times one variable, one multiply per monomial.
     The CUDA kernel carries the same plan as `constexpr` tables.
+  * `monomial_basis(channels, degree)`: the whole basis stacked on a
+    trailing axis, built by the chain (never a `pow`).
   * `poly_apply(img, coeffs, ...)`: evaluates the polynomial per pixel and
     contracts it with per-image coefficients, by scalar-broadcast
-    accumulation over pixel chunks.
+    accumulation over pixel chunks (`form="acc"`) or, on an image within one
+    chunk, as one product with the stacked basis (`form="matmul"`).
 
 `num_coeffs = C(V+D, D)`: 126 for the degree-4, 5-variable transform.
 """
@@ -67,6 +70,20 @@ def monomial_chain(degree: int, num_vars: int) -> tuple[tuple[int, int], ...]:
     return tuple(plan)
 
 
+def _chain_terms(channels: Sequence[Tensor], degree: int) -> list[Tensor]:
+    terms = [torch.ones_like(channels[0])]
+    for parent, var in monomial_chain(degree, len(channels)):
+        terms.append(terms[parent] * channels[var])
+    return terms
+
+
+def monomial_basis(channels: Sequence[Tensor], degree: int) -> Tensor:
+    """Stack the full monomial basis of V same-shaped planes (one per
+    variable) on a new trailing axis -> (*shape, num_coeffs), by the
+    incremental chain."""
+    return torch.stack(_chain_terms(channels, degree), dim=-1)
+
+
 @lru_cache(maxsize=None)
 def _last_use(degree: int, num_vars: int) -> tuple[int, ...]:
     """For each monomial, the last chain step that reads it as a parent
@@ -104,6 +121,23 @@ def _eval_chunk(channels: Sequence[Tensor], coeffs_t: Tensor, degree: int) -> Te
     return torch.stack(accs, dim=-1)
 
 
+def _eval_matmul(channels: Sequence[Tensor], coeffs_t: Tensor, degree: int) -> Tensor:
+    """V planes of (B, P) -> (B, P, num_out) with the basis stacked on axis
+    0, (N, B, P), contracted with the (B, N, num_out) coefficients in one
+    product at full fp32 (TF32 off, as the JAX form's HIGHEST precision).
+    The whole basis is live: 126 x B x P floats at degree 4."""
+    basis = torch.stack(_chain_terms(channels, degree), dim=0)
+    matmul = torch.backends.cuda.matmul
+    saved, matmul.allow_tf32 = matmul.allow_tf32, False
+    try:
+        return torch.einsum("nbp,bnc->bpc", basis, coeffs_t)
+    finally:
+        matmul.allow_tf32 = saved
+
+
+FORMS = ("acc", "matmul")
+
+
 def poly_apply(
     img: Tensor,
     coeffs: Tensor,
@@ -111,15 +145,20 @@ def poly_apply(
     degree: int = 4,
     num_out: int = 3,
     chunk_pixels: int = _DEFAULT_CHUNK,
+    form: str = "acc",
 ) -> Tensor:
     """Per-pixel polynomial transform with per-image coefficients.
 
     img: (B, H, W, V) polynomial variables; coeffs: (B, num_out, num_coeffs)
     in `monomial_powers` order. Evaluates at most `chunk_pixels` pixels of
     every image at a time; under torch.export, where the pixel count is
-    symbolic, all of them in one pass. Returns (B, H, W, num_out) in img's
-    dtype.
+    symbolic, all of them in one pass. `form` is "acc" (the accumulation,
+    the default) or "matmul" (the stacked basis and one product, kept for
+    measurement, as in the JAX package); an image of more than one chunk
+    always takes "acc". Returns (B, H, W, num_out) in img's dtype.
     """
+    if form not in FORMS:
+        raise ValueError(f"form must be one of {FORMS}; got {form!r}")
     b, h, w, v = img.shape
     n = num_monomials(degree, v)
     if tuple(coeffs.shape) != (b, num_out, n):
@@ -133,7 +172,8 @@ def poly_apply(
         chunks = [flat[:, s : s + chunk_pixels] for s in range(0, p, chunk_pixels)]
     else:  # a loop over a symbolic count would specialize the export to one size
         chunks = [flat]
-    outs = [_eval_chunk([c[..., i] for i in range(v)], coeffs_t, degree) for c in chunks]
+    evaluate = _eval_matmul if form == "matmul" and len(chunks) == 1 else _eval_chunk
+    outs = [evaluate([c[..., i] for i in range(v)], coeffs_t, degree) for c in chunks]
     out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
     return out.reshape(b, h, w, num_out).to(img.dtype)
 

@@ -163,7 +163,8 @@ def test_custom_ops_refuse_cpu_tensors():
 
 def test_export_cli(tmp_path, capsys):
     """--format torch_export --smoke_test on the CPU, then an artifact that
-    loads; --format tflite names the missing converter."""
+    loads; --format tflite --smoke_test (the TFLite interpreter within 1e-3
+    of the model's forward)."""
     _, _, model = _pair("curve")
     optimizer = state_lib.make_optimizer(model.parameters(), state_lib.onecycle_schedule(1, 1))
     ckpt = ckpt_lib.write(str(tmp_path / "ckpt"), state_lib.TrainState(model, optimizer), 0)
@@ -176,9 +177,11 @@ def test_export_cli(tmp_path, capsys):
     got = torch_export.load(out).call(img, torch.ones(1, S, S, 1), img)
     with torch.no_grad():
         np.testing.assert_array_equal(got.numpy(), model(img, torch.ones(1, S, S, 1), img)[0])
-    with pytest.raises(NotImplementedError, match="ai_edge_torch"):
-        ecli.main(["--checkpoint_dir", ckpt, "--out_path", out, "--format", "tflite",
-                   "--platform", "cpu"])
+    tfl = str(tmp_path / "curve.tflite")
+    ecli.main(["--checkpoint_dir", ckpt, "--out_path", tfl, "--format", "tflite", "--model",
+               "curve", "--backbone", "tiny", "--backbone_size", str(S), "--target_h", "45",
+               "--target_w", "29", "--smoke_test", "--platform", "cpu"])
+    assert "smoke test ok at 45x29" in capsys.readouterr().out
     with pytest.raises(ValueError, match="tri-space"):
         ecli.main(["--checkpoint_dir", ckpt, "--out_path", out, "--format", "mobile",
                    "--model", "curve", "--backbone", "tiny", "--platform", "cpu"])

@@ -1,6 +1,6 @@
 """Import hygiene of the port: `curl_tpu_torch`, `chip_smoke.py` and
 `__graft_entry_torch__.py` import torch and never jax, flax or the JAX package (only the port's tests import
-both)."""
+both); the TFLite exports load TensorFlow only when they run."""
 
 import re
 import subprocess
@@ -52,6 +52,7 @@ MODULES = [
     "curl_tpu_torch.models.trispace",
     "curl_tpu_torch.export",
     "curl_tpu_torch.export.mobile",
+    "curl_tpu_torch.export.tflite",
     "curl_tpu_torch.export.torch_convert",
     "curl_tpu_torch.export.torch_export",
     "curl_tpu_torch.infer",
@@ -87,6 +88,21 @@ def test_importing_the_port_loads_no_jax():
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "", f"modules of the JAX stack loaded: {proc.stdout}"
+
+
+def test_importing_the_exports_loads_no_tensorflow():
+    """TensorFlow is imported inside the TFLite functions only."""
+    code = (
+        "import sys\n"
+        "import curl_tpu_torch, curl_tpu_torch.export.tflite, curl_tpu_torch.export.mobile\n"
+        "print(','.join(sorted(k for k in sys.modules\n"
+        "                      if k.split('.')[0] in ('tensorflow', 'jax', 'tf_keras'))))\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "", f"loaded at import: {proc.stdout}"
 
 
 _SOURCES = sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py",
