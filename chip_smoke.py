@@ -1,13 +1,17 @@
 #!/usr/bin/env python3
 """Drive the port's serving, training, distributed and bf16 paths on one
-NVIDIA GPU and hold its CUDA kernels against their plain torch versions.
+NVIDIA GPU, at the default and at other polynomial degrees and knot counts,
+and hold its CUDA kernels against their plain torch versions.
 
     python3 chip_smoke.py
 
 Phases, each of which fails the run:
   1. Print the card (nvidia-smi) and build kernels K1 (csrc/trispace_kernel.cu)
-     and K2 (csrc/curve_kernel.cu) from the checkout, one nvcc each, both
-     started together; print the build time and ptxas reports.
+     and K2 (csrc/curve_kernel.cu) from the checkout, K1 once for each
+     polynomial degree it runs here (4, and 1, 2, 3, 5, 6 for phase 15: one
+     library a degree, its tables generated by ops/kernels/poly_tables.py),
+     one nvcc each, all started together; print each build's time and the
+     ptxas reports.
   2. K1 against its plain version on the card: 1080p batch 8 fp32 (residual
      and composite), a 1080p row band at row0 = 540 (the y-fold) against the
      plain version and the whole-image slice, odd 17x23, a small row band,
@@ -143,10 +147,44 @@ Phases, each of which fails the run:
      three residuals within 2e-4 of each other; their CUDA-event times and
      the plain forms' peak memory.
 
+ 15. The polynomial degrees and knot counts past the defaults, rw_t at full
+     width from seed 0 with BN statistics from one batch (as phases 4 and 7):
+     (a) TriSpacePolyNet at polynomial_order 3 and 5 (spatial), 320^2
+         predict, 1920x1080 batch 8, u8 wire: enhance_image and
+         enhance_stream over 2 batches, one K1 launch a batch and no K2, the
+         u8 outputs within 1 of Enhancer(impl="torch"); enhance_chained at
+         K=4, K+1 launches at warm-up and capture, within 1 of the
+         per-batch path.
+     (b) One train step at polynomial_order=3 through K1 against the plain
+         step, as phase 9(a).
+     (c) CurlCurveNet at 288/288/384 knot parameters (96 knots a curve),
+         the same shapes and checks as phase 7 (knot logits rescaled as
+         phase 7 does, at the steepness of 16 knots: `knot_std`), the
+         chained call as in (a), and one train step as phase 10(a), its
+         knot logits rescaled the same way first (at the random init's
+         std, ~0.21, 96-knot curves are ~28 a unit steep, and the few
+         pixels where the kernel's and the plain forward part then carry
+         the last layer's gradient: 0.46 relative L2 apart in a first run).
+     (d) K1 at degrees 1, 2, 3, 5 and 6, spatial and not, against its plain
+         version with phase 2's checks and tolerances at 1080p batch 2:
+         residual and composite, a band at row0 = 540 (bitwise the whole
+         image's rows), odd 17x23, bf16, the u8 wire.
+     (e) K2 at 66, 96 and 257 knots a curve and at (2, 96, 257) against its
+         plain version with phase 5's checks and tolerances at 1080p batch
+         2, knot logits at phase 5's stds scaled to the steepness of 16
+         knots: with and without a mask, std 0.2, mask=None bitwise,
+         bf16, the u8 wire, odd 17x23.
+     (f) Times from CUDA events at 1080p batch 8: K1 at degrees 1-6, fp32
+         and u8 composite, beside each degree's bound, build time and
+         ptxas registers and spills; K2 at 16, 96 and 257 knots, and at 96
+         and 257 with one run of 256 pixels a block (the prologue's cost).
+
 The kernels' record carries, besides each kernel's main-path launches and
 times, the launches of phases 12 and 13 and the backbone + head replay times
 at fp32 and bf16 (`fp32_backbone_ms`, `bf16_backbone_ms`), and phase 14's
-times at 512x512 batch 8 (`ms_512`, `plain_acc_ms_512`, `plain_matmul_ms_512`).
+times at 512x512 batch 8 (`ms_512`, `plain_acc_ms_512`, `plain_matmul_ms_512`),
+and phase 15's numbers by degree and by knot count (`k1_ms_by_degree`,
+`k1_bound_ms_by_degree`, `k2_ms_by_knots`, ...).
 The last two lines
 before the final one are the kernels' JSON record and the card's
 `name, power.limit`; the final line is
@@ -268,6 +306,31 @@ BF16_TURNS = ("fp32", "bf16", "bf16", "fp32")
 # (2.2e-5 at 256^2 batch 8 on the CPU), so residuals are held to FP32_TOL.
 FORM_BATCH, FORM_SIDE = 8, 512
 FORM_TOL = 1e-5
+
+# Phase 15: the polynomial degrees and knot counts past the defaults. Serving
+# at two degrees, enhance_stream over DEGREE_STREAM batches after
+# enhance_image; one train step at TRAIN_DEGREE; K1 against its plain version
+# at every other degree and K2 at many knots, at 1080p batch DEGREE_BATCH
+# (the plain versions' time and memory: K2's plain ramps at 257 knots are
+# 4.2 GB a curve at this batch); the curve model at 96 knots a curve.
+OTHER_DEGREES = (1, 2, 3, 5, 6)
+SERVE_DEGREES = (3, 5)
+TRAIN_DEGREE = 3
+DEGREE_STREAM = 2
+DEGREE_BATCH = 2
+MANY_KNOTS = (66, 96, 257)
+MIXED_KNOTS = (2, 96, 257)
+KNOTS_96 = dict(num_lab_points=288, num_rgb_points=288, num_hsv_points=384)
+
+
+def knot_std(counts, std16: float) -> float:
+    """Knot-logit std at which curves of these knot counts are as steep as
+    16-knot curves at `std16`. A curve's slope in its driving plane is
+    n_seg * (k_(j+1) - k_j): iid logits of one std make a 257-knot curve 17x
+    as steep as a 16-knot one, and its ten chained curves amplify an fp32
+    rounding by that much each (the plain version parts from float64 by up
+    to 6e-2 there, tests/test_torch_poly_degrees.py)."""
+    return std16 * 15 / (max(counts) - 1)
 
 
 def log(msg: str) -> None:
@@ -581,23 +644,25 @@ def calibrate_batch_norm(model, forward) -> None:
         m.momentum = 0.1
 
 
-def calibrate_curve_model(curve_model, small) -> None:
+def calibrate_curve_model(curve_model, small, counts=(16, 16, 16)) -> None:
     """BN statistics from the predict view `small`, then the knot logits
-    rescaled to KNOT_STD when they fall outside KNOT_STD_RANGE."""
+    rescaled to KNOT_STD when they fall outside KNOT_STD_RANGE (both at the
+    steepness of 16 knots, `knot_std`, for other knot counts)."""
     import torch
 
+    lo, hi, target = (knot_std(counts, s) for s in (*KNOT_STD_RANGE, KNOT_STD))
     calibrate_batch_norm(curve_model, lambda: curve_model.predict_knots(small))
     with torch.inference_mode():
-        knot_std = float(curve_model.predict_knots(small).std())
-    log(f"  knot logit std: {knot_std:.4f}")
-    if not KNOT_STD_RANGE[0] <= knot_std <= KNOT_STD_RANGE[1]:
+        std = float(curve_model.predict_knots(small).std())
+    log(f"  knot logit std: {std:.4f}")
+    if not lo <= std <= hi:
         # The classifier's bias is zero, so scaling its weight scales the
         # logits and their std exactly.
         with torch.no_grad():
-            curve_model.backbone.classifier.weight.mul_(KNOT_STD / knot_std)
-            knot_std = float(curve_model.predict_knots(small).std())
-        log(f"  outside {KNOT_STD_RANGE}: classifier weight rescaled, knot logit std now "
-            f"{knot_std:.4f}")
+            curve_model.backbone.classifier.weight.mul_(target / std)
+            std = float(curve_model.predict_knots(small).std())
+        log(f"  outside ({lo:.4f}, {hi:.4f}): classifier weight rescaled, knot logit std now "
+            f"{std:.4f}")
 
 
 def small_view(batch, dev):
@@ -657,11 +722,11 @@ def drive(enh, batches, counters, wire):
     return [first] + streamed, counts
 
 
-def check_outputs(outs, ref_enh, batches, dev, max_diff=1) -> int:
+def check_outputs(outs, ref_enh, batches, dev, max_diff=1, min_same=U8_SAME_SHARE) -> int:
     """Shape, dtype and device of the u8 outputs, and their agreement with
-    the plain path: at least U8_SAME_SHARE of the values identical (or,
-    with `max_diff=None`, within 1, the largest difference printed, for the
-    curve path's branch flips), and none more than `max_diff` apart.
+    the plain path: at least `min_same` of the values identical (or, with
+    `max_diff=None`, U8_SAME_SHARE within 1, the largest difference printed,
+    for the curve path's branch flips), and none more than `max_diff` apart.
     Returns the largest difference."""
     import torch
 
@@ -678,8 +743,8 @@ def check_outputs(outs, ref_enh, batches, dev, max_diff=1) -> int:
         worst = max(worst, int(diff.max()))
     log(f"  u8 vs the plain path: max diff {worst}, identical share {min(same):.6f}, "
         f"share within 1 {min(near):.8f}")
-    share = min(same) if max_diff is not None else min(near)
-    if (max_diff is not None and worst > max_diff) or share < U8_SAME_SHARE:
+    share, bound = (min(same), min_same) if max_diff is not None else (min(near), U8_SAME_SHARE)
+    if (max_diff is not None and worst > max_diff) or share < bound:
         raise AssertionError("main-path u8 output disagrees with the plain path")
     return worst
 
@@ -781,9 +846,32 @@ def last_linear(model):
     return [m for m in model.backbone.classifier.modules() if isinstance(m, torch.nn.Linear)][-1]
 
 
-def check_train_step(cfg, impl_attr: str, batch, counters, dev) -> None:
+def rescale_knot_logits(model, img, counts) -> tuple[float, float]:
+    """Scale the curve model's classifier so that its knot logits on `img`
+    (train-mode BN, the model's buffers left as they were) have the std at
+    which curves of `counts` knots are as steep as 16-knot curves at
+    KNOT_STD (`knot_std`). Returns (std before, std after)."""
+    import torch
+
+    def std() -> float:
+        saved = {k: v.clone() for k, v in model.state_dict().items()}
+        model.train()
+        with torch.no_grad():
+            value = float(model.predict_knots(img).std())
+        model.load_state_dict(saved)
+        return value
+
+    before = std()
+    with torch.no_grad():
+        model.backbone.classifier.weight.mul_(knot_std(counts, KNOT_STD) / before)
+    return before, std()
+
+
+def check_train_step(cfg, impl_attr: str, batch, counters, dev, knot_counts=None) -> None:
     """Phase 9a / 10a: one train step through the kernel and one through
-    the plain path from a copy with the same weights, augment off."""
+    the plain path from a copy with the same weights, augment off. With
+    `knot_counts`, the curve model's knot logits are first rescaled to the
+    steepness of 16 knots (`rescale_knot_logits`)."""
     import torch
 
     from curl_tpu_torch.train import loop
@@ -791,6 +879,10 @@ def check_train_step(cfg, impl_attr: str, batch, counters, dev) -> None:
     from curl_tpu_torch.train import steps as steps_lib
 
     kernel_model = loop.build_model(cfg, dev, torch.Generator().manual_seed(SEED))
+    if knot_counts is not None:
+        before, after = rescale_knot_logits(kernel_model, batch["input_img"].float() / 255.0,
+                                            knot_counts)
+        log(f"  knot logit std {before:.4f}, rescaled to {after:.4f}")
     plain_model = copy.deepcopy(kernel_model)
     setattr(plain_model, impl_attr, "torch")
     step = steps_lib.make_train_step(cfg.ssim_window_size, augment=False,
@@ -1881,6 +1973,288 @@ def residual_forms(torch, tk, dev, rng, card) -> dict:
     return {"ms": ms, "peak_gib": peak, "poly_err": poly_err, "err": err}
 
 
+def k1_bound_ms(degree: int, pixels: int) -> tuple[float, float]:
+    """(bound ms, byte ms) of K1 at `degree` on `pixels` fp32 pixels, spatial:
+    per pixel and space the folded chain's F - 1 FMUL and 3F FFMA (2 FLOP
+    each), F = C(D+4, 4), plus ~200 FLOP of color math, sigmoid and residual
+    (phase 8's allowance); bytes 24 per pixel."""
+    from curl_tpu_torch.ops import poly
+
+    f = poly.num_monomials(degree, 4)
+    flop_ms = pixels * 3 * ((f - 1) + 6 * f + 200) / PEAK_FP32_FLOPS * 1e3
+    byte_ms = pixels * 24 / PEAK_BYTES_PER_S * 1e3
+    return max(flop_ms, byte_ms), byte_ms
+
+
+def check_degree_kernels(tk, dev, rng) -> dict:
+    """Phase 15 (d): K1 at each of OTHER_DEGREES, both spatial settings,
+    against its plain version with phase 2's checks and tolerances at 1080p
+    batch DEGREE_BATCH. Returns {degree: fp32 max abs error}."""
+    import torch
+
+    from curl_tpu_torch.ops import poly
+
+    def plain(img, cs, degree, spatial, row0=0, total=None, **kw):
+        th, tw = total if total else img.shape[1:3]
+        return tk.fused_trispace_residual_reference(img, *cs, row0, degree=degree,
+                                                    spatial=spatial, total_h=th, total_w=tw,
+                                                    **kw)
+
+    def max_err(a, b):
+        return float((a.float() - b.float()).abs().max())
+
+    img = image(rng, DEGREE_BATCH, HEIGHT, WIDTH, dev)
+    img16, img8 = img.to(torch.bfloat16), (img * 255).to(torch.uint8)
+    odd = image(rng, 1, 17, 23, dev)
+    errs = {}
+    for degree in OTHER_DEGREES:
+        for spatial in (True, False):
+            kw = dict(degree=degree, spatial=spatial)
+            n = poly.num_monomials(degree, 3 + 2 * int(spatial))
+            cs, cs1 = coefficients(rng, DEGREE_BATCH, n, dev), coefficients(rng, 1, n, dev)
+            found = {}
+            for composite in (False, True):
+                got = tk.fused_trispace_residual(img, *cs, composite=composite, **kw)
+                if not torch.isfinite(got).all():
+                    raise AssertionError(f"K1 degree {degree} output is not finite")
+                found[f"fp32 composite={composite}"] = max_err(got, plain(
+                    img, cs, composite=composite, **kw))
+            row0 = HEIGHT // 2
+            band = tk.fused_trispace_residual(img[:, row0:].contiguous(), *cs,
+                                              tile=(row0, 0, HEIGHT, WIDTH), composite=True, **kw)
+            slice_err = max_err(band, got[:, row0:])
+            found[f"band row0={row0}"] = max_err(band, plain(
+                img[:, row0:], cs, row0=row0, total=(HEIGHT, WIDTH), composite=True, **kw))
+            found["odd 17x23"] = max_err(tk.fused_trispace_residual(odd, *cs1, **kw),
+                                         plain(odd, cs1, **kw))
+            del got, band
+            q16 = p999(tk.fused_trispace_residual(img16, *cs, composite=True, **kw).float()
+                       - plain(img16, cs, composite=True, **kw).float())
+            worst, same, _ = u8_agreement(
+                tk.fused_trispace_residual(img8, *cs, composite=True, **kw),
+                plain(img8, cs, composite=True, **kw),
+                f"degree {degree} spatial={spatial} u8 wire vs plain")
+            log(f"  degree {degree} spatial={spatial}: max abs err "
+                + ", ".join(f"{k} {v:.3e}" for k, v in found.items())
+                + f"; band vs whole-image slice {slice_err:.3e}; bf16 p99.9 {q16:.3e}")
+            bad = {k: v for k, v in found.items() if not v <= FP32_TOL}
+            if bad or slice_err != 0.0 or q16 > BF16_P999_TOL or worst > 1 or same < U8_SAME_SHARE:
+                raise AssertionError(f"K1 degree {degree} spatial={spatial} disagrees with its "
+                                     f"plain version: {bad}, slice {slice_err}, bf16 {q16}, "
+                                     f"u8 {worst}/{same}")
+            if spatial:
+                errs[degree] = max(found.values())
+    return errs
+
+
+def check_many_knots(ck, dev, rng) -> dict:
+    """Phase 15 (e): K2 at MANY_KNOTS and MIXED_KNOTS against its plain
+    version with phase 5's checks and tolerances at 1080p batch DEGREE_BATCH,
+    knot logits at phase 5's std scaled by 15 / n_seg (`knot_std`). Returns
+    {counts: fp32 max abs error}."""
+    import torch
+
+    def report(args, what):
+        got = ck.fused_curve_enhance(*args)
+        torch.cuda.synchronize()
+        if got.dtype != args[0].dtype or not torch.isfinite(got.float()).all():
+            raise AssertionError(f"K2 {what}: gave {got.dtype} or a non-finite value")
+        err = (got.float() - ck.fused_curve_enhance_reference(*args).float()).abs()
+        n_off = int((err > FP32_TOL).sum())
+        log(f"  {what}: max abs err {float(err.max()):.3e}, p99.9 {p999(err):.3e}, {n_off} of "
+            f"{err.numel()} values off by more than {FP32_TOL}")
+        return err, n_off
+
+    errs = {}
+    for counts in [(k, k, k) for k in MANY_KNOTS] + [MIXED_KNOTS]:
+        args = curve_inputs(rng, DEGREE_BATCH, HEIGHT, WIDTH, dev, std=knot_std(counts, 0.05),
+                            counts=counts)
+        for mask in (args[1], None):
+            err, n_off = report([args[0], mask] + args[2:],
+                                f"knots {counts} fp32 {'mask' if mask is not None else 'no mask'}")
+            if n_off > CURVE_FLIP_SHARE * err.numel():
+                raise AssertionError(f"K2 at knots {counts}: {n_off} values off")
+        errs[counts] = float(err.max())
+        err, _ = report(curve_inputs(rng, DEGREE_BATCH, HEIGHT, WIDTH, dev,
+                                     std=knot_std(counts, 0.2), counts=counts),
+                        f"knots {counts} fp32 knot std 0.2 at 16 knots' steepness")
+        if p999(err) > CURVE_P999_TOL:
+            raise AssertionError(f"K2 at knots {counts}: p99.9 {p999(err)} > {CURVE_P999_TOL}")
+        no_mask = ck.fused_curve_enhance(args[0], None, *args[2:])
+        if not torch.equal(no_mask, ck.fused_curve_enhance(args[0], torch.ones_like(args[1]),
+                                                           *args[2:])):
+            raise AssertionError(f"K2 at knots {counts}: mask=None differs from all ones")
+        del no_mask
+        args16 = [a.to(torch.bfloat16) for a in args[:2]] + args[2:]
+        err, _ = report(args16, f"knots {counts} bf16")
+        if p999(err) > BF16_P999_TOL:
+            raise AssertionError(f"K2 bf16 at knots {counts}: p99.9 {p999(err)}")
+        args8 = [(args[0] * 255).to(torch.uint8), args[1].to(torch.uint8)] + args[2:]
+        got8 = ck.fused_curve_enhance(*args8)
+        _, same, far = u8_agreement(got8, ck.fused_curve_enhance_reference(*args8),
+                                    f"knots {counts} u8 wire vs plain")
+        if same < U8_SAME_SHARE or far > CURVE_FLIP_SHARE * got8.numel():
+            raise AssertionError(f"K2 u8 wire at knots {counts} disagrees with its plain version")
+        err, n_off = report(curve_inputs(rng, 1, 17, 23, dev, std=knot_std(counts, 0.05),
+                                         counts=counts), f"knots {counts} odd 17x23")
+        if n_off:
+            raise AssertionError(f"K2 odd 17x23 at knots {counts}: {n_off} values off")
+        del args, args16, args8, got8
+    return errs
+
+
+def chained_check(torch, enh, kernel: str, rng, counters) -> dict:
+    """Phase 15: one enhance_chained call at K=CHAIN on the u8 wire: K+1
+    launches of `kernel` while it warms up and captures the CUDA graph (K
+    on the CPU, which loops), none of the other, and every output within 1
+    of the per-batch path."""
+    other = "K2" if kernel == "K1" else "K1"
+    chain = chain_inputs(rng, torch)
+    out, launches = counted(counters, lambda: enh.enhance_chained(*chain)[0])
+    torch.cuda.synchronize()
+    expect = CHAIN + 1 if enh.device.type == "cuda" else CHAIN
+    if launches != {kernel: expect, other: 0}:
+        raise AssertionError(f"chained: expected {expect} {kernel} launches, counted {launches}")
+    worst = 0
+    for k in range(CHAIN):
+        ref = enh.enhance_image(*(x[k] for x in chain))
+        worst = max(worst, int((out[k].int() - ref.int()).abs().max()))
+    log(f"  enhance_chained K={CHAIN}: launches {launches} at warm-up and capture; vs the "
+        f"per-batch path max diff {worst}")
+    if worst > 1:
+        raise AssertionError("chained output more than 1 apart from the per-batch path")
+    return launches
+
+
+def other_degrees_and_knots(torch, dev, rng, counters, train_counters, batch, card,
+                            builds: dict) -> dict:
+    """Phase 15. Returns the numbers the kernels' record carries."""
+    from curl_tpu_torch.config import Config
+    from curl_tpu_torch.infer.engine import Enhancer
+    from curl_tpu_torch.models.curl_curve import CurlCurveNet
+    from curl_tpu_torch.models.trispace import TriSpacePolyNet
+    from curl_tpu_torch.ops import poly, wire
+    from curl_tpu_torch.tools import kernel_probe
+
+    tk, ck = counters["K1"], counters["K2"]
+    out = {"k1_launches": {}, "k2_launches": {}}
+    for degree in SERVE_DEGREES:
+        log(f"  (a) TriSpacePolyNet polynomial_order={degree}, rw_t, {PREDICT}^2 predict -> "
+            f"{WIDTH}x{HEIGHT} batch {BATCH}, u8 wire")
+        model = TriSpacePolyNet(backbone=BACKBONE, polynomial_order=degree, device=dev,
+                                generator=torch.Generator().manual_seed(SEED))
+        batches = [serving_batch(rng, torch) for _ in range(1 + DEGREE_STREAM)]
+        small, mask = small_view(batches[0], dev)
+        calibrate_batch_norm(model, lambda: model.generate_coefficients(small, mask))
+        enh = Enhancer(model, backbone_size=PREDICT, out_u8=True)
+        outs, counts = drive(enh, batches, counters, wire)
+        log(f"  launches: {counts} for {len(outs)} batches")
+        if counts != {"K1": len(outs), "K2": 0}:
+            raise AssertionError(f"expected {len(outs)} K1 and no K2 launches, counted {counts}")
+        check_outputs(outs, Enhancer(model, backbone_size=PREDICT, out_u8=True, impl="torch"),
+                      batches, dev, min_same=0.0)
+        out["k1_launches"][degree] = {"stream": counts["K1"],
+                                      "chained": chained_check(torch, enh, "K1", rng,
+                                                               counters)["K1"]}
+        del outs, enh, model, batches
+        torch.cuda.empty_cache()
+
+    log(f"  (b) TriSpacePolyNet polynomial_order={TRAIN_DEGREE} train step, batch "
+        f"{TRAIN_BATCH} of {CROP}x{CROP}, against the plain step")
+    check_train_step(Config(model="trispace", polynomial_order=TRAIN_DEGREE), "residual_impl",
+                     batch, train_counters, dev)
+    torch.cuda.empty_cache()
+
+    counts96 = (KNOTS_96["num_lab_points"] // 3,) * 2 + (KNOTS_96["num_hsv_points"] // 4,)
+    log(f"  (c) CurlCurveNet {counts96} knots a curve, rw_t, the same shapes")
+    curve_model = CurlCurveNet(backbone=BACKBONE, device=dev,
+                               generator=torch.Generator().manual_seed(SEED), **KNOTS_96)
+    batches = [serving_batch(rng, torch) for _ in range(1 + DEGREE_STREAM)]
+    curve_small, _ = small_view(batches[0], dev)
+    calibrate_curve_model(curve_model, curve_small, counts96)
+    enh = Enhancer(curve_model, backbone_size=PREDICT, out_u8=True)
+    plain_model = copy.deepcopy(curve_model)
+    plain_model.curve_impl = "torch"
+    outs, counts = drive(enh, batches, counters, wire)
+    log(f"  launches: {counts} for {len(outs)} batches")
+    if counts != {"K1": 0, "K2": len(outs)}:
+        raise AssertionError(f"expected {len(outs)} K2 and no K1 launches, counted {counts}")
+    check_outputs(outs, Enhancer(plain_model, backbone_size=PREDICT, out_u8=True), batches, dev,
+                  max_diff=None)
+    out["k2_launches"][96] = {"stream": counts["K2"],
+                              "chained": chained_check(torch, enh, "K2", rng, counters)["K2"]}
+    del outs, enh, curve_model, plain_model, batches
+    torch.cuda.empty_cache()
+    log(f"  CurlCurveNet {counts96} knots train step, batch {TRAIN_BATCH} of {CROP}x{CROP}, "
+        "against the plain step")
+    check_train_step(Config(model="curve", **KNOTS_96), "curve_impl", batch, train_counters, dev,
+                     knot_counts=counts96)
+    torch.cuda.empty_cache()
+
+    log(f"  (d) K1 at degrees {OTHER_DEGREES} against its plain version, 1080p batch "
+        f"{DEGREE_BATCH}")
+    out["k1_err"] = check_degree_kernels(tk, dev, rng)
+    torch.cuda.empty_cache()
+    log(f"  (e) K2 at {MANY_KNOTS} knots a curve and {MIXED_KNOTS} against its plain version, "
+        f"1080p batch {DEGREE_BATCH}")
+    out["k2_err"] = check_many_knots(ck, dev, rng)
+    torch.cuda.empty_cache()
+
+    log(f"  (f) times (CUDA events), 1080p batch {BATCH}, composite  [{card}]")
+    pixels = BATCH * HEIGHT * WIDTH
+    img = image(rng, BATCH, HEIGHT, WIDTH, dev)
+    img8 = (img * 255).to(torch.uint8)
+    out["k1_ms"], out["k1_ms_u8"], out["k1_bound_ms"], out["k1_plain_ms"] = {}, {}, {}, {}
+    for degree in sorted(OTHER_DEGREES + (4,)):
+        cs = coefficients(rng, BATCH, poly.num_monomials(degree, 5), dev)
+        fp32_ms = cuda_ms(lambda: tk.fused_trispace_residual(img, *cs, degree=degree,
+                                                             composite=True), 10)
+        u8_ms = cuda_ms(lambda: tk.fused_trispace_residual(img8, *cs, degree=degree,
+                                                           composite=True), 10)
+        plain_ms = cuda_ms(lambda: tk.fused_trispace_residual_reference(
+            img, *cs, degree=degree, composite=True), 2, warmup=1)
+        bound, _ = k1_bound_ms(degree, pixels)
+        out["k1_ms"][degree], out["k1_ms_u8"][degree] = fp32_ms, u8_ms
+        out["k1_bound_ms"][degree], out["k1_plain_ms"][degree] = bound, plain_ms
+        log(f"  K1 degree {degree}: fp32 {fp32_ms:.3f} ms, u8 {u8_ms:.3f} ms; plain version "
+            f"{plain_ms:.3f} ms; bound {bound:.3f} ms ({100 * bound / fp32_ms:.1f}% of fp32); build "
+            f"{builds.get(degree, float('nan')):.1f} s; ptxas "
+            f"{kernel_probe.registers(tk.ptxas_report(degree), kernel_probe.K1_MAIN)}  [{card}]")
+    del img8, cs
+    out["k2_ms"], out["k2_one_chunk_ms"], out["k2_plain_ms"] = {}, {}, {}
+    for k in (16,) + MANY_KNOTS[1:]:
+        c_img, c_mask, *knots = curve_inputs(rng, BATCH, HEIGHT, WIDTH, dev,
+                                             std=knot_std((k,), KNOT_STD), counts=(k, k, k))
+        ms = cuda_ms(lambda: ck.fused_curve_enhance(c_img, None, *knots), 10)
+        mask_ms = cuda_ms(lambda: ck.fused_curve_enhance(c_img, c_mask, *knots), 10)
+        # The prologue's cost: one run of 256 pixels a block, as at 16 knots.
+        chunks, ck.block_chunks = ck.block_chunks, lambda seg: 1
+        try:
+            one_ms = cuda_ms(lambda: ck.fused_curve_enhance(c_img, None, *knots), 10)
+        finally:
+            ck.block_chunks = chunks
+        out["k2_ms"][k], out["k2_one_chunk_ms"][k] = ms, one_ms
+        # The plain version's ramps are (K-1) x the image's pixels a curve:
+        # 17 GB at 257 knots, so it is timed up to 96.
+        if k <= 96:
+            out["k2_plain_ms"][k] = cuda_ms(lambda: ck.fused_curve_enhance_reference(
+                c_img, c_mask, *knots), 2, warmup=1)
+        log(f"  K2 {k} knots a curve: no mask {ms:.3f} ms, mask {mask_ms:.3f} ms; with one run "
+            f"of 256 pixels a block (the prologue once per 256 pixels) {one_ms:.3f} ms; "
+            f"{chunks(k - 1)} runs a block; plain version with mask "
+            f"{out['k2_plain_ms'].get(k, float('nan')):.3f} ms  [{card}]")
+        del c_img, c_mask, knots
+    out["k1_build_s"] = builds
+    return out
+
+
+def by_key(values: dict) -> dict:
+    """A dict keyed by ints or tuples of ints, with JSON keys ("96",
+    "2/96/257")."""
+    return {"/".join(map(str, k)) if isinstance(k, tuple) else str(k): v
+            for k, v in values.items()}
+
+
 def pil_available() -> bool:
     try:
         import PIL  # noqa: F401
@@ -1923,11 +2297,24 @@ def main() -> int:
         raise AssertionError("matmul TF32 must stay off (degree-4 polynomial amplifies it)")
     counters = {"K1": tk, "K2": ck}
 
-    log("phase 1: build K1 and K2 (one nvcc each, in parallel)")
+    log(f"phase 1: build K1 (degree 4) and K2, and K1 at degrees {OTHER_DEGREES} for phase 15 "
+        "(one nvcc each, all in parallel)")
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
-        for path in pool.map(build.build, KERNELS):
-            log(f"  built {path}")
+
+    def timed(job):
+        start = time.perf_counter()
+        path = job()
+        return path, time.perf_counter() - start
+
+    jobs = [lambda d=d: tk.build_library(d) for d in (4,) + OTHER_DEGREES]
+    jobs.append(lambda: build.build("curve_kernel"))
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        built = list(pool.map(timed, jobs))
+    degree_builds = {}
+    for degree, (path, seconds) in zip((4,) + OTHER_DEGREES + (None,), built):
+        log(f"  built {path} in {seconds:.1f} s")
+        if degree is not None:
+            degree_builds[degree] = seconds
     log(f"  nvcc builds {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     probe = torch.zeros(8, device=dev)
@@ -1935,8 +2322,8 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"  K3 ({CLIP_SOURCE}) compiled by NVRTC through torch.cuda.jiterator at its first "
         f"launch: {time.perf_counter() - t0:.1f} s")
-    for name in KERNELS:
-        for line in build.ptxas_report(name).splitlines():
+    for name, report in zip(KERNELS, (tk.ptxas_report(4), build.ptxas_report("curve_kernel"))):
+        for line in report.splitlines():
             if ("registers" in line or "spill" in line or "Compiling entry" in line
                     or "smem" in line):
                 log(f"  ptxas {name}: {line.strip()}")
@@ -2037,13 +2424,15 @@ def main() -> int:
         return amount / rate * 1e3
 
     pixels = BATCH * HEIGHT * WIDTH
-    # K1 with the y-fold, per pixel and space: 69 FMUL + 210 FFMA (2 FLOP
-    # each) of the 4-variable chain, plus ~200 FLOP of color conversion,
-    # sigmoid and residual (the allowance of the Pallas kernel's own cost
-    # estimate, which counts the unfolded chain as 7 * 126). The per-row fold
-    # is ~1e-3 of that. Bytes: img in and out (24 B/px fp32, 6 B/px on the u8
-    # wire) and the fp32 coefficients of every image.
-    flops = pixels * 3 * (69 + 2 * 210 + 200)
+    # K1 with the y-fold, per pixel and space: the F - 1 FMUL and 3F FFMA (2
+    # FLOP each) of the 4-variable chain, F = C(D+4, 4) = 70 at degree 4,
+    # plus ~200 FLOP of color conversion, sigmoid and residual (the
+    # allowance of the Pallas kernel's own cost estimate, which counts the
+    # unfolded chain as 7 * 126): k1_bound_ms. The per-row fold is ~1e-3 of
+    # that. Bytes: img in and out (24 B/px fp32, 6 B/px on the u8 wire) and
+    # the fp32 coefficients of every image.
+    folded = 70
+    flops = pixels * 3 * ((folded - 1) + 6 * folded + 200)
     unfolded_flops = pixels * 3 * (7 * 126 + 200)
     coef_bytes = 3 * BATCH * 3 * 126 * 4
     flop_ms, unfolded_ms = ms(flops, PEAK_FP32_FLOPS), ms(unfolded_flops, PEAK_FP32_FLOPS)
@@ -2194,6 +2583,13 @@ def main() -> int:
         f"of {FORM_SIDE}x{FORM_SIDE} fp32")
     forms = residual_forms(torch, tk, dev, rng, card)
     torch.cuda.empty_cache()
+    log(f"phase 15: polynomial orders {SERVE_DEGREES} and 96 knots a curve through the entry "
+        f"points; K1 at degrees {OTHER_DEGREES} and K2 at {MANY_KNOTS} knots")
+    t0 = time.perf_counter()
+    other = other_degrees_and_knots(torch, dev, rng, counters, dict(counters, K3=clk), batch,
+                                    card, degree_builds)
+    log(f"  phase 15 took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
     # K3 runs only on the training paths: its launches are theirs.
     clip_launches = sum(n["K3"] for _, n in train_times.values())
 
@@ -2226,6 +2622,13 @@ def main() -> int:
             "ms_512": forms["ms"]["K1"],
             "plain_acc_ms_512": forms["ms"]["acc"],
             "plain_matmul_ms_512": forms["ms"]["matmul"],
+            "k1_ms_by_degree": by_key(other["k1_ms"]),
+            "k1_ms_u8_by_degree": by_key(other["k1_ms_u8"]),
+            "k1_bound_ms_by_degree": by_key(other["k1_bound_ms"]),
+            "k1_plain_ms_by_degree": by_key(other["k1_plain_ms"]),
+            "k1_max_abs_err_by_degree": by_key(other["k1_err"]),
+            "k1_build_s_by_degree": by_key(other["k1_build_s"]),
+            "k1_launches_by_degree": by_key(other["k1_launches"]),
         },
         {
             "name": "fused_curve_enhance",
@@ -2246,6 +2649,11 @@ def main() -> int:
             "chained_launches": chained["curve"]["launches"],
             "chained_device_ms_per_batch": chained["curve"]["device_ms"],
             "gloo_cli_launches": [r["launches"]["K2"] for r in dist["gloo"]["curve"]],
+            "k2_ms_by_knots": by_key(other["k2_ms"]),
+            "k2_one_chunk_ms_by_knots": by_key(other["k2_one_chunk_ms"]),
+            "k2_plain_ms_by_knots": by_key(other["k2_plain_ms"]),
+            "k2_max_abs_err_by_knots": by_key(other["k2_err"]),
+            "k2_launches_by_knots": by_key(other["k2_launches"]),
         },
         {
             "name": "tie_clip_grad",

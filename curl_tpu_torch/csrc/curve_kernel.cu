@@ -42,15 +42,20 @@
 //   for bit. The build uses no fast math.
 //
 // Knot counts: the (16, 16, 16) default (the 48/48/64 split of CurlCurveNet)
-// is a template instance with 16-entry tables and compile-time segment
-// counts. Any other counts with 2 <= K <= kMaxKnots per group run the
-// runtime-count instance (64-entry tables), through the same lookup.
+// is a template instance with compile-time segment counts. Any other
+// counts, K >= 2 a group, run the runtime-count instance through the same
+// lookup. Both keep their tables in dynamic shared memory sized from the
+// longest curve (shared_bytes; opted in above 48 KB).
+// Its prologue sums S prefixes serially, so a block covers `chunks` runs of
+// 256 pixels (the wrapper gives ceil(S / 16)) to keep that cost per pixel
+// what it is at 16 knots.
 //
 // Layout: NHWC img and out (3 consecutive values per pixel) and the
 // (B, H, W, 1) mask, read directly. Grid: x covers the pixels of one image
-// in blocks of kThreads, y is the image index. Flat offsets are int64. One
-// launch covers any batch and resolution; the curve pass has no
-// coordinates, so no row-band offsets are needed.
+// in blocks of kThreads x chunks, y is the image index. Flat offsets are
+// int64. Any batch (past 65,535 images, in launches of that many) and
+// resolution; the curve pass has no coordinates, so no row-band offsets are
+// needed.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -63,8 +68,8 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kCurves = 10;
-constexpr int kMaxKnots = 65;
-constexpr int kMaxSeg = kMaxKnots - 1;
+constexpr int kMaxGridY = 65535;
+constexpr int kStaticSharedBytes = 48 * 1024;  // above this only by opt-in
 
 // Storage <-> fp32. uint8 is the u8 wire: an image is x / 255 in and
 // floor-quantized out; a mask is its value.
@@ -113,85 +118,40 @@ __device__ __forceinline__ void apply_mask(float (&pl)[3], float m) {
   }
 }
 
-// KL, KR, KH: knots per curve of each group; all 0 selects the runtime
-// counts k_lab, k_rgb, k_hsv. HAS_MASK = false reads no mask (all ones).
-template <typename T, bool HAS_MASK, int KL, int KR, int KH>
-__global__ void __launch_bounds__(kThreads)
-curve_enhance_kernel(const T* __restrict__ img, const T* __restrict__ mask,
-                     const float* __restrict__ slopes, const float* __restrict__ c0,
-                     T* __restrict__ out, long long pixels, int k_lab, int k_rgb,
-                     int k_hsv) {
-  constexpr bool kFixed = KL > 0;
-  constexpr int kStaticSeg =
-      kFixed ? ((KL > KR ? (KL > KH ? KL : KH) : (KR > KH ? KR : KH)) - 1) : kMaxSeg;
-  // Table entries per curve: a power of two of at least 16, so a curve's
-  // table starts on a 128 B boundary.
-  constexpr int kStride = kStaticSeg <= 16 ? 16 : (kStaticSeg <= 32 ? 32 : 64);
-  __shared__ __align__(128) float2 s_tab[kCurves * kStride];
-  __shared__ float s_slope[kCurves * kStaticSeg];
-  __shared__ float s_c0[kCurves];
-
-  const int n_lab = kFixed ? KL - 1 : k_lab - 1;
-  const int n_rgb = kFixed ? KR - 1 : k_rgb - 1;
-  const int n_hsv = kFixed ? KH - 1 : k_hsv - 1;
-  const int seg = kFixed ? kStaticSeg : max(n_lab, max(n_rgb, n_hsv));
-
-  // Prologue: stage this image's (10, seg) slopes and 10 c0 values with the
-  // whole block, then one thread per curve sums its prefix table in j order.
-  const long long image = blockIdx.y;
-  const float* src = slopes + image * (kCurves * seg);
-  for (int i = threadIdx.x; i < kCurves * seg; i += kThreads) s_slope[i] = src[i];
-  if (threadIdx.x < kCurves) s_c0[threadIdx.x] = c0[image * kCurves + threadIdx.x];
-  __syncthreads();
-  if (threadIdx.x < kCurves) {
-    const int curve = threadIdx.x;
-    const int n = curve < 3 ? n_lab : (curve < 6 ? n_rgb : n_hsv);
-    const float* sl = s_slope + curve * seg;
-    float2* tab = s_tab + curve * kStride;
-    float prefix = s_c0[curve];
-    for (int j = 0; j < n; ++j) {
-      const float s = sl[j];
-      tab[j] = make_float2(prefix, s);
-      prefix = prefix + s;
-    }
-  }
-  __syncthreads();
-
-  const long long p = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (p >= pixels) return;
-  const long long px = image * pixels + p;
+// One pixel: the ten curves, the residual and the composite. t holds the
+// ten prefix tables, `stride` entries apart.
+template <typename T, bool HAS_MASK, int NL, int NR, int NH>
+__device__ __forceinline__ void enhance_pixel(const T* __restrict__ img,
+                                              const T* __restrict__ mask, T* __restrict__ out,
+                                              long long px, const float2* t, int stride,
+                                              int n_lab, int n_rgb, int n_hsv) {
   const long long off = px * 3;
   const float r = to_float(img[off]);
   const float g = to_float(img[off + 1]);
   const float b = to_float(img[off + 2]);
   const float m = HAS_MASK ? mask_value(mask[px]) : 1.0f;
-
-  constexpr int NL = kFixed ? KL - 1 : 0;
-  constexpr int NR = kFixed ? KR - 1 : 0;
-  constexpr int NH = kFixed ? KH - 1 : 0;
-  const float2* t = s_tab;
   float pl[3];
 
   // Lab curves.
   curl_planes::lab_from_rgb(r, g, b, pl[0], pl[1], pl[2]);
-  apply_curve<NL, 0, 0>(pl, t + 0 * kStride, n_lab);
-  apply_curve<NL, 1, 1>(pl, t + 1 * kStride, n_lab);
-  apply_curve<NL, 2, 2>(pl, t + 2 * kStride, n_lab);
+  apply_curve<NL, 0, 0>(pl, t + 0 * stride, n_lab);
+  apply_curve<NL, 1, 1>(pl, t + 1 * stride, n_lab);
+  apply_curve<NL, 2, 2>(pl, t + 2 * stride, n_lab);
   apply_mask<HAS_MASK>(pl, m);
 
   // RGB curves.
   curl_planes::rgb_from_lab(pl[0], pl[1], pl[2], pl[0], pl[1], pl[2]);
-  apply_curve<NR, 0, 0>(pl, t + 3 * kStride, n_rgb);
-  apply_curve<NR, 1, 1>(pl, t + 4 * kStride, n_rgb);
-  apply_curve<NR, 2, 2>(pl, t + 5 * kStride, n_rgb);
+  apply_curve<NR, 0, 0>(pl, t + 3 * stride, n_rgb);
+  apply_curve<NR, 1, 1>(pl, t + 4 * stride, n_rgb);
+  apply_curve<NR, 2, 2>(pl, t + 5 * stride, n_rgb);
   apply_mask<HAS_MASK>(pl, m);
 
   // HSV curves: H->H, H->S, S->S, V->V.
   curl_planes::hsv_from_rgb(pl[0], pl[1], pl[2], pl[0], pl[1], pl[2]);
-  apply_curve<NH, 0, 0>(pl, t + 6 * kStride, n_hsv);
-  apply_curve<NH, 0, 1>(pl, t + 7 * kStride, n_hsv);
-  apply_curve<NH, 1, 1>(pl, t + 8 * kStride, n_hsv);
-  apply_curve<NH, 2, 2>(pl, t + 9 * kStride, n_hsv);
+  apply_curve<NH, 0, 0>(pl, t + 6 * stride, n_hsv);
+  apply_curve<NH, 0, 1>(pl, t + 7 * stride, n_hsv);
+  apply_curve<NH, 1, 1>(pl, t + 8 * stride, n_hsv);
+  apply_curve<NH, 2, 2>(pl, t + 9 * stride, n_hsv);
   apply_mask<HAS_MASK>(pl, m);
 
   // Residual and composite.
@@ -206,34 +166,121 @@ curve_enhance_kernel(const T* __restrict__ img, const T* __restrict__ mask,
   }
 }
 
+// Table entries a curve of `seg` segments takes: a multiple of 16, so each
+// curve's table starts on a 128 B boundary and a warp's data-dependent
+// reads hit distinct banks or broadcast.
+__host__ __device__ constexpr int table_stride(int seg) { return (seg + 15) / 16 * 16; }
+
+// Dynamic shared memory of a block: the ten tables of float2 (P[j], s_j),
+// the staged slopes and the ten c0, 10 x S x 12 B and a little more
+// (1,880 B at 16 knots, 30,760 B at 257).
+__host__ __device__ constexpr int shared_bytes(int seg) {
+  return kCurves * (table_stride(seg) * 8 + seg * 4 + 4);
+}
+
+// KL, KR, KH: knots per curve of each group; all 0 selects the runtime
+// counts k_lab, k_rgb, k_hsv. HAS_MASK = false reads no mask (all ones).
+// A block covers `chunks` runs of kThreads pixels of one image (always one
+// in the fixed instance), so its prologue is paid once per chunks x 256
+// pixels.
+template <typename T, bool HAS_MASK, int KL, int KR, int KH>
+__global__ void __launch_bounds__(kThreads)
+curve_enhance_kernel(const T* __restrict__ img, const T* __restrict__ mask,
+                     const float* __restrict__ slopes, const float* __restrict__ c0,
+                     T* __restrict__ out, long long pixels, int k_lab, int k_rgb,
+                     int k_hsv, int chunks) {
+  constexpr bool kFixed = KL > 0;
+  const int n_lab = kFixed ? KL - 1 : k_lab - 1;
+  const int n_rgb = kFixed ? KR - 1 : k_rgb - 1;
+  const int n_hsv = kFixed ? KH - 1 : k_hsv - 1;
+  constexpr int kStaticSeg = (KL > KR ? (KL > KH ? KL : KH) : (KR > KH ? KR : KH)) - 1;
+  const int seg = kFixed ? kStaticSeg : max(n_lab, max(n_rgb, n_hsv));
+
+  // shared_bytes(seg) of dynamic shared memory: the ten prefix tables,
+  // `stride` entries apart, then the staged slopes and the ten c0.
+  extern __shared__ __align__(128) float2 s_tab[];
+  const int stride = table_stride(seg);
+  float* s_slope = reinterpret_cast<float*>(s_tab + kCurves * stride);
+  float* s_c0 = s_slope + kCurves * seg;
+
+  // Prologue: stage this image's (10, seg) slopes and 10 c0 values with the
+  // whole block, then one thread per curve sums its prefix table in j order.
+  const long long image = blockIdx.y;
+  const float* src = slopes + image * (kCurves * seg);
+  for (int i = threadIdx.x; i < kCurves * seg; i += kThreads) s_slope[i] = src[i];
+  if (threadIdx.x < kCurves) s_c0[threadIdx.x] = c0[image * kCurves + threadIdx.x];
+  __syncthreads();
+  if (threadIdx.x < kCurves) {
+    const int curve = threadIdx.x;
+    const int n = curve < 3 ? n_lab : (curve < 6 ? n_rgb : n_hsv);
+    const float* sl = s_slope + curve * seg;
+    float2* tab = s_tab + curve * stride;
+    float prefix = s_c0[curve];
+    for (int j = 0; j < n; ++j) {
+      const float s = sl[j];
+      tab[j] = make_float2(prefix, s);
+      prefix = prefix + s;
+    }
+  }
+  __syncthreads();
+
+  constexpr int NL = kFixed ? KL - 1 : 0;
+  constexpr int NR = kFixed ? KR - 1 : 0;
+  constexpr int NH = kFixed ? KH - 1 : 0;
+  const int n_chunks = kFixed ? 1 : chunks;
+  const long long first = static_cast<long long>(blockIdx.x) * kThreads * n_chunks + threadIdx.x;
+  for (int c = 0; c < n_chunks; ++c) {
+    const long long p = first + static_cast<long long>(c) * kThreads;
+    if (p >= pixels) return;
+    enhance_pixel<T, HAS_MASK, NL, NR, NH>(img, mask, out, image * pixels + p, s_tab, stride,
+                                           n_lab, n_rgb, n_hsv);
+  }
+}
+
+// grid.y (images) takes at most 65,535: a larger batch launches in chunks
+// of images, each from its first image.
 template <typename T, bool HAS_MASK>
 cudaError_t launch(const void* img, const void* mask, const void* slopes, const void* c0,
                    void* out, long long batch, long long pixels, int k_lab, int k_rgb,
-                   int k_hsv, cudaStream_t stream) {
-  const dim3 grid(static_cast<unsigned>((pixels + kThreads - 1) / kThreads),
-                  static_cast<unsigned>(batch));
-  const T* i = static_cast<const T*>(img);
-  const T* mk = static_cast<const T*>(mask);
-  const float* s = static_cast<const float*>(slopes);
-  const float* c = static_cast<const float*>(c0);
-  T* o = static_cast<T*>(out);
-  if (k_lab == 16 && k_rgb == 16 && k_hsv == 16) {
-    curve_enhance_kernel<T, HAS_MASK, 16, 16, 16><<<grid, kThreads, 0, stream>>>(
-        i, mk, s, c, o, pixels, k_lab, k_rgb, k_hsv);
-  } else {
-    curve_enhance_kernel<T, HAS_MASK, 0, 0, 0><<<grid, kThreads, 0, stream>>>(
-        i, mk, s, c, o, pixels, k_lab, k_rgb, k_hsv);
+                   int k_hsv, int chunks, cudaStream_t stream) {
+  const bool fixed = k_lab == 16 && k_rgb == 16 && k_hsv == 16;
+  const int seg = (k_lab > k_rgb ? (k_lab > k_hsv ? k_lab : k_hsv)
+                                 : (k_rgb > k_hsv ? k_rgb : k_hsv)) - 1;
+  const auto kernel = fixed ? &curve_enhance_kernel<T, HAS_MASK, 16, 16, 16>
+                            : &curve_enhance_kernel<T, HAS_MASK, 0, 0, 0>;
+  const int n_chunks = fixed ? 1 : chunks;
+  const int bytes = shared_bytes(seg);
+  if (bytes > kStaticSharedBytes) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
   }
-  return cudaGetLastError();
+  const long long per_block = static_cast<long long>(kThreads) * n_chunks;
+  const unsigned blocks_x = static_cast<unsigned>((pixels + per_block - 1) / per_block);
+  for (long long i0 = 0; i0 < batch; i0 += kMaxGridY) {
+    const long long nb = batch - i0 < kMaxGridY ? batch - i0 : kMaxGridY;
+    const long long first = i0 * pixels;
+    kernel<<<dim3(blocks_x, static_cast<unsigned>(nb)), kThreads, bytes, stream>>>(
+        static_cast<const T*>(img) + first * 3,
+        mask == nullptr ? nullptr : static_cast<const T*>(mask) + first,
+        static_cast<const float*>(slopes) + i0 * kCurves * seg,
+        static_cast<const float*>(c0) + i0 * kCurves, static_cast<T*>(out) + first * 3, pixels,
+        k_lab, k_rgb, k_hsv, n_chunks);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 template <typename T>
 cudaError_t dispatch(const void* img, const void* mask, const void* slopes, const void* c0,
                      void* out, long long batch, long long pixels, int k_lab, int k_rgb,
-                     int k_hsv, cudaStream_t stream) {
+                     int k_hsv, int chunks, cudaStream_t stream) {
   return mask != nullptr
-      ? launch<T, true>(img, mask, slopes, c0, out, batch, pixels, k_lab, k_rgb, k_hsv, stream)
-      : launch<T, false>(img, mask, slopes, c0, out, batch, pixels, k_lab, k_rgb, k_hsv, stream);
+      ? launch<T, true>(img, mask, slopes, c0, out, batch, pixels, k_lab, k_rgb, k_hsv, chunks,
+                        stream)
+      : launch<T, false>(img, mask, slopes, c0, out, batch, pixels, k_lab, k_rgb, k_hsv, chunks,
+                         stream);
 }
 
 }  // namespace
@@ -244,26 +291,28 @@ extern "C" {
 // contiguous or null (all ones), all float32 (dtype == 0), all bfloat16
 // (dtype == 1) or all uint8 (dtype == 2, the u8 wire). slopes: (batch, 10, S)
 // contiguous float32, zero-padded, with S = max(k_lab, k_rgb, k_hsv) - 1;
-// c0: (batch, 10) float32. Each k in 2..65. Launches on `stream` without
-// synchronizing; returns cudaGetLastError() after the launch.
+// c0: (batch, 10) float32. Each k >= 2; chunks >= 1 runs of kThreads pixels
+// a block (the runtime-count instance). Launches on `stream` without
+// synchronizing; returns the first error of a launch (or of the
+// shared-memory opt-in), else cudaSuccess.
 int curl_curve_enhance(const void* img, const void* mask, const void* slopes, const void* c0,
                        void* out, long long batch, long long pixels, int k_lab, int k_rgb,
-                       int k_hsv, int dtype, void* stream) {
-  const bool bad_k = k_lab < 2 || k_rgb < 2 || k_hsv < 2 || k_lab > kMaxKnots ||
-                     k_rgb > kMaxKnots || k_hsv > kMaxKnots;
-  if (batch <= 0 || batch > 65535 || pixels <= 0 || bad_k || dtype < 0 || dtype > 2 ||
-      (pixels + kThreads - 1) / kThreads > 0x7fffffffLL) {
+                       int k_hsv, int chunks, int dtype, void* stream) {
+  if (batch <= 0 || pixels <= 0 || k_lab < 2 || k_rgb < 2 || k_hsv < 2 || chunks < 1 ||
+      dtype < 0 || dtype > 2 || (pixels + kThreads - 1) / kThreads > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 2) {
-    err = dispatch<uint8_t>(img, mask, slopes, c0, out, batch, pixels, k_lab, k_rgb, k_hsv, s);
+    err = dispatch<uint8_t>(img, mask, slopes, c0, out, batch, pixels, k_lab, k_rgb, k_hsv,
+                            chunks, s);
   } else if (dtype == 1) {
     err = dispatch<__nv_bfloat16>(img, mask, slopes, c0, out, batch, pixels, k_lab, k_rgb,
-                                  k_hsv, s);
+                                  k_hsv, chunks, s);
   } else {
-    err = dispatch<float>(img, mask, slopes, c0, out, batch, pixels, k_lab, k_rgb, k_hsv, s);
+    err = dispatch<float>(img, mask, slopes, c0, out, batch, pixels, k_lab, k_rgb, k_hsv,
+                          chunks, s);
   }
   return static_cast<int>(err);
 }

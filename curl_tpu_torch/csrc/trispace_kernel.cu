@@ -4,11 +4,16 @@
 // curl_tpu/ops/pallas/trispace_kernel.py::_make_kernel(...).kernel.
 // Per pixel: RGB -> Lab and RGB -> HSV; the normalized coordinates
 // x = col/total_w and y = (row+row0)/total_h; for each of the three spaces the
-// degree-4 polynomial by the incremental monomial chain, contracted with that
+// degree-D polynomial by the incremental monomial chain, contracted with that
 // image's 3 x N coefficients; a sigmoid; Lab/HSV -> RGB; and the residual
 // sum of 2(sigma - 0.5). With COMPOSITE it writes clip(img + residual, 0, 1)
 // instead of the residual. The monomials live in registers only; nothing but
 // the image, the coefficients and the output touches device memory.
+//
+// The degree is a compile-time constant: trispace_tables.h, generated by
+// ops/kernels/poly_tables.py from ops/poly.py, holds D, the chain plans, the
+// fold map, the coefficient counts and the launch shape, and each degree is
+// a library of its own. The numbers below are degree 4's.
 //
 // What bounds it: instruction issue and latency, not memory. It moves 24 B/px
 // in fp32 (12 with bf16 storage, 6 on the u8 wire) against thousands of
@@ -23,12 +28,12 @@
 // What this design does about it:
 // - Per-row y-fold (spatial instance). y is constant along a row, and every
 //   block lies in one row (grid = column blocks x rows x images). The block's
-//   prologue folds each space's 126 coefficients into the 70 of a degree-4
-//   polynomial in (c1, c2, c3, x): c'_q = sum_e c_(q,e) * y^e, by Horner in
-//   fp32, with the map kFoldY generated from poly.monomial_powers. Each pixel
-//   then runs the 4-variable chain kChain4: 69 FMUL + 210 FFMA + 70 LDS.128
-//   per space. The fold reorders the sums, so results are not bit-identical
-//   to the unfolded chain (they agree to ~1e-6).
+//   prologue folds each space's C(D+5, 5) coefficients (126) into the
+//   C(D+4, 4) (70) of a degree-D polynomial in (c1, c2, c3, x):
+//   c'_q = sum_e c_(q,e) * y^e, by Horner in fp32, with the map kFoldY. Each
+//   pixel then runs the 4-variable chain kChain4: 69 FMUL + 210 FFMA + 70
+//   LDS.128 per space. The fold reorders the sums, so results are not
+//   bit-identical to the unfolded chain (they agree to ~1e-6).
 // - Two pixels per thread (kPix = 2), kThreads apart so that loads stay
 //   coalesced: each coefficient broadcast from shared memory feeds 6 FFMA
 //   instead of 3, which halves the shared loads per pixel.
@@ -40,7 +45,9 @@
 //   (staging, fold, two barriers) is paid once per 1,024 pixels. These
 //   settings were the fastest of a one-time sweep on the card against one
 //   pixel a thread, 256- and 1,024-thread blocks and no register cap
-//   (PERF.md).
+//   (PERF.md). The chain keeps C(D+3, 4) monomials a pixel alive (35 at
+//   D = 4, 70 at 5, 126 at 6), so degrees above 4 take their own shape
+//   (poly_tables.LAUNCH), swept the same way.
 // - The u8 wire fused: a uint8 image is read and normalized as x / 255.0f
 //   (IEEE division), and the composite leaves as (uint8)min(max(v*255, 0),
 //   255), the floor quantize of ops/wire.py, bit for bit. The build uses no
@@ -53,8 +60,9 @@
 //
 // Layout: NHWC in and out (3 consecutive values per pixel), read directly.
 // Grid: x covers a row in blocks of kThreads * kPix pixels, y is the row, z
-// the image. Flat offsets are int64 (8K x batch 32 x 3 exceeds 2^31). One
-// launch covers any batch and resolution up to 65,535 rows.
+// the image. Flat offsets are int64 (8K x batch 32 x 3 exceeds 2^31). Any
+// batch and height: past 65,535 rows or images the launch is split in
+// chunks of the grid (launch below).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -63,61 +71,18 @@
 #include <utility>
 
 #include "color_planes.cuh"
+#include "trispace_tables.h"  // generated for one degree by ops/kernels/poly_tables.py
 
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kPix = 2;          // pixels per thread
-constexpr int kMinBlocks = 2;    // blocks per SM that __launch_bounds__ sizes registers for
 constexpr int kBlockPixels = kThreads * kPix;
 constexpr int kMaxGridYZ = 65535;
-constexpr int kSpatialRaw = 126;  // monomials of degree <= 4 in (c1, c2, c3, x, y)
+constexpr int kStaticSharedBytes = 48 * 1024;  // above this only by opt-in
 
-// (parent, var) plan of poly.monomial_chain(4, 4) over (c1, c2, c3, x): the
-// folded spatial basis.
-constexpr int kChain4[69][2] = {
-    {0, 0}, {0, 1}, {0, 2}, {0, 3}, {1, 0}, {2, 0}, {3, 0}, {4, 0}, {2, 1}, {3, 1},
-    {4, 1}, {3, 2}, {4, 2}, {4, 3}, {5, 0}, {6, 0}, {7, 0}, {8, 0}, {9, 0}, {10, 0},
-    {11, 0}, {12, 0}, {13, 0}, {14, 0}, {9, 1}, {10, 1}, {11, 1}, {12, 1}, {13, 1}, {14, 1},
-    {12, 2}, {13, 2}, {14, 2}, {14, 3}, {15, 0}, {16, 0}, {17, 0}, {18, 0}, {19, 0}, {20, 0},
-    {21, 0}, {22, 0}, {23, 0}, {24, 0}, {25, 0}, {26, 0}, {27, 0}, {28, 0}, {29, 0}, {30, 0},
-    {31, 0}, {32, 0}, {33, 0}, {34, 0}, {25, 1}, {26, 1}, {27, 1}, {28, 1}, {29, 1}, {30, 1},
-    {31, 1}, {32, 1}, {33, 1}, {34, 1}, {31, 2}, {32, 2}, {33, 2}, {34, 2}, {34, 3},
-};
-
-// (parent, var) plan of poly.monomial_chain(4, 3), the non-spatial basis.
-constexpr int kChain3[34][2] = {
-    {0, 0}, {0, 1}, {0, 2}, {1, 0}, {2, 0}, {3, 0}, {2, 1}, {3, 1}, {3, 2}, {4, 0},
-    {5, 0}, {6, 0}, {7, 0}, {8, 0}, {9, 0}, {7, 1}, {8, 1}, {9, 1}, {9, 2}, {10, 0},
-    {11, 0}, {12, 0}, {13, 0}, {14, 0}, {15, 0}, {16, 0}, {17, 0}, {18, 0}, {19, 0}, {16, 1},
-    {17, 1}, {18, 1}, {19, 1}, {19, 2},
-};
-
-// The y-fold: kFoldY[q][e] is the index in poly.monomial_powers(4, 5) of
-// monomial q of poly.monomial_powers(4, 4) times y^e, or -1 past degree 4.
-// The prologue's threads read different rows of it, so it lives in global
-// memory (cached in L1): constant memory serializes such reads.
-__device__ const int8_t kFoldY[70][5] = {
-    {0, 5, 20, 55, 125}, {1, 10, 35, 90, -1}, {2, 14, 45, 110, -1}, {3, 17, 51, 120, -1}, {4, 19, 54, 124, -1},
-    {6, 25, 70, -1, -1}, {7, 29, 80, -1, -1}, {8, 32, 86, -1, -1}, {9, 34, 89, -1, -1}, {11, 39, 100, -1, -1},
-    {12, 42, 106, -1, -1}, {13, 44, 109, -1, -1}, {15, 48, 116, -1, -1}, {16, 50, 119, -1, -1}, {18, 53, 123, -1, -1},
-    {21, 60, -1, -1, -1}, {22, 64, -1, -1, -1}, {23, 67, -1, -1, -1}, {24, 69, -1, -1, -1}, {26, 74, -1, -1, -1},
-    {27, 77, -1, -1, -1}, {28, 79, -1, -1, -1}, {30, 83, -1, -1, -1}, {31, 85, -1, -1, -1}, {33, 88, -1, -1, -1},
-    {36, 94, -1, -1, -1}, {37, 97, -1, -1, -1}, {38, 99, -1, -1, -1}, {40, 103, -1, -1, -1}, {41, 105, -1, -1, -1},
-    {43, 108, -1, -1, -1}, {46, 113, -1, -1, -1}, {47, 115, -1, -1, -1}, {49, 118, -1, -1, -1}, {52, 122, -1, -1, -1},
-    {56, -1, -1, -1, -1}, {57, -1, -1, -1, -1}, {58, -1, -1, -1, -1}, {59, -1, -1, -1, -1}, {61, -1, -1, -1, -1},
-    {62, -1, -1, -1, -1}, {63, -1, -1, -1, -1}, {65, -1, -1, -1, -1}, {66, -1, -1, -1, -1}, {68, -1, -1, -1, -1},
-    {71, -1, -1, -1, -1}, {72, -1, -1, -1, -1}, {73, -1, -1, -1, -1}, {75, -1, -1, -1, -1}, {76, -1, -1, -1, -1},
-    {78, -1, -1, -1, -1}, {81, -1, -1, -1, -1}, {82, -1, -1, -1, -1}, {84, -1, -1, -1, -1}, {87, -1, -1, -1, -1},
-    {91, -1, -1, -1, -1}, {92, -1, -1, -1, -1}, {93, -1, -1, -1, -1}, {95, -1, -1, -1, -1}, {96, -1, -1, -1, -1},
-    {98, -1, -1, -1, -1}, {101, -1, -1, -1, -1}, {102, -1, -1, -1, -1}, {104, -1, -1, -1, -1}, {107, -1, -1, -1, -1},
-    {111, -1, -1, -1, -1}, {112, -1, -1, -1, -1}, {114, -1, -1, -1, -1}, {117, -1, -1, -1, -1}, {121, -1, -1, -1, -1},
-};
-
-// Number of monomials of degree <= 4 in NV variables.
+// Number of monomials of degree <= kDegree in NV variables.
 template <int NV> struct NumCoeffs;
-template <> struct NumCoeffs<4> { static constexpr int value = 70; };
-template <> struct NumCoeffs<3> { static constexpr int value = 35; };
+template <> struct NumCoeffs<4> { static constexpr int value = kFolded; };
+template <> struct NumCoeffs<3> { static constexpr int value = kPlain; };
 
 // Step K of the chain as compile-time scalars, usable in device code.
 template <int NV, int K> struct ChainStep;
@@ -197,15 +162,18 @@ trispace_residual_kernel(const T* __restrict__ img, const float4* __restrict__ c
   constexpr int NV = SPATIAL ? 4 : 3;  // chain variables: (c1, c2, c3[, x])
   constexpr int N = NumCoeffs<NV>::value;
   constexpr int kRaw = SPATIAL ? kSpatialRaw : N;  // coefficients per space in `coef`
-  __shared__ float4 s_coef[3 * N];
+  // Dynamic shared memory (shared_bytes): the 3 x N coefficients the pixels
+  // read, then, spatial only, the image's 3 x kSpatialRaw staged for the fold.
+  extern __shared__ float4 s_shared[];
+  float4* s_coef = s_shared;
 
   const int row = blockIdx.y;
   const long long image = blockIdx.z;
   const float4* src = coef + image * (3 * kRaw);
   if constexpr (SPATIAL) {
-    // Stage the image's 3 x 126 coefficients, then fold this row's y into
-    // 3 x 70: c'_q = ((c_(q,4) y + c_(q,3)) y + ...) y + c_(q,0).
-    __shared__ float4 s_raw[3 * kSpatialRaw];
+    // Stage the image's 3 x kSpatialRaw coefficients, then fold this row's y
+    // into 3 x kFolded: c'_q = ((c_(q,D) y + c_(q,D-1)) y + ...) y + c_(q,0).
+    float4* s_raw = s_shared + 3 * N;
     for (int i = threadIdx.x; i < 3 * kSpatialRaw; i += kThreads) s_raw[i] = src[i];
     __syncthreads();
     const float y = static_cast<float>(row + row0) / static_cast<float>(total_h);
@@ -214,7 +182,7 @@ trispace_residual_kernel(const T* __restrict__ img, const float4* __restrict__ c
       const int q = i - space * N;
       float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 #pragma unroll
-      for (int e = 4; e >= 0; --e) {
+      for (int e = kDegree; e >= 0; --e) {
         const int k = kFoldY[q][e];
         if (k >= 0) {
           const float4 c = s_raw[space * kSpatialRaw + k];
@@ -314,21 +282,53 @@ trispace_residual_kernel(const T* __restrict__ img, const float4* __restrict__ c
   }
 }
 
+// Bytes of dynamic shared memory an instance stages: 3 x N coefficients,
+// plus 3 x kSpatialRaw raw ones when spatial (9,408 B at degree 4, 32,256 B
+// at degree 6).
+template <bool SPATIAL>
+constexpr int shared_bytes() {
+  return static_cast<int>(sizeof(float4)) *
+         (3 * NumCoeffs<SPATIAL ? 4 : 3>::value + (SPATIAL ? 3 * kSpatialRaw : 0));
+}
+
+// grid.y (rows) and grid.z (images) take at most 65,535 each: a larger
+// batch or height launches in chunks, each from its first image and row,
+// with row0 advanced by the chunk's first row, so the kernel sees what one
+// launch would.
 template <typename T, bool SPATIAL, bool COMPOSITE>
-cudaError_t launch(const void* img, const void* coef, void* out, int batch, int height,
-                   int width, int row0, int total_h, int total_w, cudaStream_t stream) {
-  const dim3 grid(static_cast<unsigned>((width + kBlockPixels - 1) / kBlockPixels),
-                  static_cast<unsigned>(height), static_cast<unsigned>(batch));
-  trispace_residual_kernel<T, SPATIAL, COMPOSITE><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(img), static_cast<const float4*>(coef), static_cast<T*>(out),
-      height, width, row0, total_h, total_w);
-  return cudaGetLastError();
+cudaError_t launch(const void* img, const void* coef, void* out, long long batch,
+                   long long height, int width, int row0, int total_h, int total_w,
+                   cudaStream_t stream) {
+  constexpr int kRaw = SPATIAL ? kSpatialRaw : NumCoeffs<3>::value;
+  constexpr int kBytes = shared_bytes<SPATIAL>();
+  const auto kernel = &trispace_residual_kernel<T, SPATIAL, COMPOSITE>;
+  if (kBytes > kStaticSharedBytes) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+    if (err != cudaSuccess) return err;
+  }
+  const unsigned blocks_x = static_cast<unsigned>((width + kBlockPixels - 1) / kBlockPixels);
+  for (long long i0 = 0; i0 < batch; i0 += kMaxGridYZ) {
+    const long long nb = batch - i0 < kMaxGridYZ ? batch - i0 : kMaxGridYZ;
+    for (long long r0 = 0; r0 < height; r0 += kMaxGridYZ) {
+      const long long nr = height - r0 < kMaxGridYZ ? height - r0 : kMaxGridYZ;
+      const long long first = (i0 * height + r0) * width * 3;
+      kernel<<<dim3(blocks_x, static_cast<unsigned>(nr), static_cast<unsigned>(nb)), kThreads,
+               kBytes, stream>>>(
+          static_cast<const T*>(img) + first, static_cast<const float4*>(coef) + i0 * 3 * kRaw,
+          static_cast<T*>(out) + first, static_cast<int>(height), width,
+          row0 + static_cast<int>(r0), total_h, total_w);
+      const cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+    }
+  }
+  return cudaSuccess;
 }
 
 template <typename T>
 cudaError_t dispatch(int spatial, int composite, const void* img, const void* coef,
-                     void* out, int batch, int height, int width, int row0, int total_h,
-                     int total_w, cudaStream_t stream) {
+                     void* out, long long batch, long long height, int width, int row0,
+                     int total_h, int total_w, cudaStream_t stream) {
   if (spatial) {
     return composite
         ? launch<T, true, true>(img, coef, out, batch, height, width, row0, total_h, total_w, stream)
@@ -345,34 +345,38 @@ extern "C" {
 
 // img/out: (batch, height, width, 3) contiguous, float32 (dtype == 0),
 // bfloat16 (dtype == 1) or uint8 (dtype == 2, the u8 wire: composite only).
-// coef: (batch, 3, N, 4) contiguous float32, N = 126 when spatial else 35,
-// the 4th lane unused. Launches on `stream` without synchronizing; returns
-// cudaGetLastError() after the launch.
+// coef: (batch, 3, N, 4) contiguous float32, N = kSpatialRaw when spatial
+// else kPlain (126 and 35 at degree 4), the 4th lane unused. Launches on
+// `stream` without synchronizing; returns the first error of a launch (or
+// of the shared-memory opt-in), else cudaSuccess.
 int curl_trispace_residual(const void* img, const void* coef, void* out, long long batch,
                            long long height, long long width, int row0, int total_h,
                            int total_w, int spatial, int composite, int dtype,
                            void* stream) {
-  if (batch <= 0 || batch > kMaxGridYZ || height <= 0 || height > kMaxGridYZ || width <= 0 ||
+  if (batch <= 0 || height <= 0 || height > 0x7fffffff || width <= 0 ||
       width > 0x7fffffff - kBlockPixels || total_h <= 0 || total_w <= 0 ||
       (dtype == 2 && !composite) || dtype < 0 || dtype > 2) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int b = static_cast<int>(batch), h = static_cast<int>(height);
   const int w = static_cast<int>(width);
   cudaError_t err;
   if (dtype == 2) {
     err = spatial
-        ? launch<uint8_t, true, true>(img, coef, out, b, h, w, row0, total_h, total_w, s)
-        : launch<uint8_t, false, true>(img, coef, out, b, h, w, row0, total_h, total_w, s);
+        ? launch<uint8_t, true, true>(img, coef, out, batch, height, w, row0, total_h, total_w, s)
+        : launch<uint8_t, false, true>(img, coef, out, batch, height, w, row0, total_h, total_w, s);
   } else if (dtype == 1) {
-    err = dispatch<__nv_bfloat16>(spatial, composite, img, coef, out, b, h, w, row0, total_h,
-                                  total_w, s);
+    err = dispatch<__nv_bfloat16>(spatial, composite, img, coef, out, batch, height, w, row0,
+                                  total_h, total_w, s);
   } else {
-    err = dispatch<float>(spatial, composite, img, coef, out, b, h, w, row0, total_h, total_w, s);
+    err = dispatch<float>(spatial, composite, img, coef, out, batch, height, w, row0, total_h,
+                          total_w, s);
   }
   return static_cast<int>(err);
 }
+
+// The polynomial degree this library was built for.
+int curl_trispace_degree() { return kDegree; }
 
 const char* curl_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

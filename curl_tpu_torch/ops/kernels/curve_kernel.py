@@ -7,6 +7,11 @@ the call raises. The backward pass runs autograd through the plain version
 for the image, the mask and all three knot stacks, as the JAX package runs
 its kernel's backward through XLA.
 
+Any knot count K >= 2 a group runs the kernel: the 16-knot default
+(48/48/64) in an instance of its own, any other counts in the runtime-count
+instance, whose prefix tables take 10 x S x 12 B of shared memory for the
+longest curve's S = K - 1 segments.
+
 `mask=None` means all ones: the kernel then reads no mask and multiplies by
 nothing, which is bitwise the same result. A uint8 image is the u8 wire: the
 kernel reads it as x / 255 (a uint8 mask as its value) and writes the
@@ -39,9 +44,6 @@ from curl_tpu_torch.ops.kernels import build
 LAUNCHES = 0
 
 _SOURCE = "curve_kernel"
-_MAX_BATCH = 65535  # grid.y
-# The kernel stages at most this many segments per curve in shared memory.
-MAX_KNOTS = 65
 # Curves per space, in the kernel's order: Lab, RGB, HSV.
 _CURVES = (3, 3, 4)
 # Storage type -> the kernel's dtype code.
@@ -105,6 +107,7 @@ def _library() -> ctypes.CDLL:
         ctypes.c_void_p,  # out
         ctypes.c_longlong, ctypes.c_longlong,  # batch, pixels per image
         ctypes.c_int, ctypes.c_int, ctypes.c_int,  # k_lab, k_rgb, k_hsv
+        ctypes.c_int,  # chunks of 256 pixels a block
         ctypes.c_int,  # dtype
         ctypes.c_void_p,  # stream
     ]
@@ -112,6 +115,13 @@ def _library() -> ctypes.CDLL:
     lib.curl_curve_error_string.argtypes = [ctypes.c_int]
     lib.curl_curve_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def block_chunks(seg: int) -> int:
+    """Runs of 256 pixels a block of the runtime-count instance covers at S
+    = `seg` segments a curve: ceil(S / 16), so the serial prefix sums of its
+    prologue cost a pixel no more than at the 16-knot default."""
+    return max(1, -(-seg // 16))
 
 
 def _launch(img: Tensor, mask: Optional[Tensor], knots_lab: Tensor, knots_rgb: Tensor,
@@ -129,8 +139,8 @@ def _launch(img: Tensor, mask: Optional[Tensor], knots_lab: Tensor, knots_rgb: T
         if k is not None and k.device != img.device:
             raise ValueError(f"inputs on {k.device}, image on {img.device}")
     b, h, w, _ = img.shape
-    if not 0 < b <= _MAX_BATCH:
-        raise ValueError(f"batch must be in 1..{_MAX_BATCH}; got {b}")
+    if b == 0:
+        raise ValueError("batch must be at least 1")
     slopes, c0 = prepare_knots(knots_lab.float(), knots_rgb.float(), knots_hsv.float())
     slopes, c0 = slopes.contiguous(), c0.contiguous()
     out = torch.empty_like(img)
@@ -143,11 +153,13 @@ def _launch(img: Tensor, mask: Optional[Tensor], knots_lab: Tensor, knots_rgb: T
         rc = lib.curl_curve_enhance(
             img.data_ptr(), None if mask is None else mask.data_ptr(), slopes.data_ptr(),
             c0.data_ptr(), out.data_ptr(), b, h * w, knots_lab.shape[-1],
-            knots_rgb.shape[-1], knots_hsv.shape[-1], _DTYPES[img.dtype], stream,
+            knots_rgb.shape[-1], knots_hsv.shape[-1], block_chunks(slopes.shape[-1]),
+            _DTYPES[img.dtype], stream,
         )
     if rc != 0:
         msg = lib.curl_curve_error_string(rc).decode()
-        raise RuntimeError(f"curve kernel launch failed: {msg} ({rc})")
+        raise RuntimeError(f"curve kernel launch failed at {slopes.shape[-1]} segments a curve: "
+                           f"{msg} ({rc})")
     LAUNCHES += 1
     return out
 
@@ -196,7 +208,7 @@ def fused_curve_enhance(
     """Paper-mode knot-curve enhancement of (B, H, W, 3) `img` under the
     (B, H, W, 1) `mask` (None: all ones, never materialized), with
     exponentiated knot stacks (B, 3, K_lab), (B, 3, K_rgb) and (B, 4, K_hsv),
-    each K in 2..MAX_KNOTS. Returns clip(img + residual, 0, 1) * mask in
+    each K >= 2. Returns clip(img + residual, 0, 1) * mask in
     img's dtype; a uint8 image returns the uint8 result of the u8 wire, with
     no gradient. A CUDA tensor launches the kernel; a CPU tensor takes the
     plain version."""
@@ -206,11 +218,9 @@ def fused_curve_enhance(
     if mask is not None and tuple(mask.shape) != (b, h, w, 1):
         raise ValueError(f"mask must be {(b, h, w, 1)}; got {tuple(mask.shape)}")
     for name, k, n in zip(("lab", "rgb", "hsv"), (knots_lab, knots_rgb, knots_hsv), _CURVES):
-        if k.dim() != 3 or tuple(k.shape[:2]) != (b, n) or not 2 <= k.shape[-1] <= MAX_KNOTS:
-            raise ValueError(
-                f"knots_{name} must be ({b}, {n}, K) with K in 2..{MAX_KNOTS}; "
-                f"got {tuple(k.shape)}"
-            )
+        if k.dim() != 3 or tuple(k.shape[:2]) != (b, n) or k.shape[-1] < 2:
+            raise ValueError(f"knots_{name} must be ({b}, {n}, K) with K >= 2; "
+                             f"got {tuple(k.shape)}")
     if img.device.type == "cpu":
         return fused_curve_enhance_reference(img, mask, knots_lab, knots_rgb, knots_hsv)
     if img.device.type != "cuda":

@@ -11,6 +11,11 @@ A uint8 image (composite only) is the u8 wire: the kernel reads it as
 x / 255 and writes the floor-quantized composite as uint8, the expressions
 of `ops.wire`, which the plain version applies around its fp32 math.
 
+The kernel takes every polynomial degree D >= 1, one library a degree:
+`poly_tables.header(D)` is compiled into `libtrispace_kernel_d<D>-<hash>.so`
+at that degree's first launch. A launch reads D from the coefficients'
+length, C(D+5, 5) spatial or C(D+3, 3) not, which differs for every degree.
+
 The launch is the custom op `curl_tpu_torch::trispace_residual`
 (`torch.library`), with a fake implementation that gives the output's shape
 and dtype, so `torch.export` records it as one node and a CUDA graph
@@ -34,14 +39,11 @@ from torch import Tensor
 
 from curl_tpu_torch.ops import color_planes as cp
 from curl_tpu_torch.ops import coords, poly, wire
-from curl_tpu_torch.ops.kernels import build
+from curl_tpu_torch.ops.kernels import build, poly_tables
 
 LAUNCHES = 0
 
 _SOURCE = "trispace_kernel"
-# The kernel carries the chain tables of degree 4 only.
-_KERNEL_DEGREE = 4
-_MAX_GRID_YZ = 65535  # rows (grid.y) and images (grid.z)
 _INT32_MAX = 2**31 - 1
 # Storage type -> the kernel's dtype code.
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2}
@@ -123,10 +125,38 @@ def fused_trispace_residual_reference(
     return torch.stack(res, dim=-1).to(img.dtype)
 
 
+def degree_of(n: int, spatial: bool) -> int:
+    """The polynomial degree whose basis has `n` monomials in 3 + 2 *
+    spatial variables."""
+    num_vars, degree = 3 + 2 * int(spatial), 0
+    while poly.num_monomials(degree, num_vars) < n:
+        degree += 1
+    if poly.num_monomials(degree, num_vars) != n:
+        raise ValueError(f"{n} coefficients a channel is no polynomial basis in {num_vars} "
+                         "variables")
+    return degree
+
+
+def _variant(degree: int) -> dict:
+    """build.py's arguments for K1 at `degree`."""
+    return dict(tag=f"_d{degree}", headers={poly_tables.HEADER: poly_tables.header(degree)})
+
+
+def build_library(degree: int = 4):
+    """Build K1's library for `degree` unless it exists; returns its path."""
+    return build.build(_SOURCE, **_variant(degree))
+
+
+def ptxas_report(degree: int = 4) -> str:
+    """nvcc's `-Xptxas -v` report of `degree`'s library ("" before its build)."""
+    return build.ptxas_report(_SOURCE, **_variant(degree))
+
+
 @functools.cache
-def _library() -> ctypes.CDLL:
-    """K1's library with its C signatures declared; built on first call."""
-    lib = build.load(_SOURCE)
+def _library(degree: int) -> ctypes.CDLL:
+    """K1's library for `degree` with its C signatures declared; built on
+    first call."""
+    lib = build.load(_SOURCE, **_variant(degree))
     lib.curl_trispace_residual.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # img, coef, out
         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,  # batch, height, width
@@ -137,6 +167,10 @@ def _library() -> ctypes.CDLL:
     lib.curl_trispace_residual.restype = ctypes.c_int
     lib.curl_cuda_error_string.argtypes = [ctypes.c_int]
     lib.curl_cuda_error_string.restype = ctypes.c_char_p
+    lib.curl_trispace_degree.restype = ctypes.c_int
+    if lib.curl_trispace_degree() != degree:
+        raise RuntimeError(f"K1's degree-{degree} library reports degree "
+                           f"{lib.curl_trispace_degree()}")
     return lib
 
 
@@ -166,12 +200,14 @@ def _launch(
         if c.device != img.device:
             raise ValueError(f"coefficients on {c.device}, image on {img.device}")
     b, h, w, _ = img.shape
-    if not 0 < b <= _MAX_GRID_YZ:
-        raise ValueError(f"batch must be in 1..{_MAX_GRID_YZ}; got {b}")
-    if h > _MAX_GRID_YZ:
-        raise ValueError(f"height must be at most {_MAX_GRID_YZ} rows; got {h}")
+    if b == 0:
+        raise ValueError("batch must be at least 1")
     if max(w, total_h, total_w, abs(row0) + h) > _INT32_MAX:
         raise ValueError("image dimensions must fit in int32")
+    degree = degree_of(coeff_rgb.shape[-1], spatial)
+    if degree < 1:
+        raise ValueError("the CUDA kernel is built for polynomial degrees >= 1; degree 0 (a "
+                         "constant a channel) runs the plain version on the CPU only")
     # (B, space, N, 4): each monomial's three channel coefficients as one
     # float4, the 4th lane zero.
     packed = torch.stack([coeff_rgb, coeff_lab, coeff_hsv], dim=1).float()
@@ -180,7 +216,7 @@ def _launch(
     if h * w == 0:
         return out
 
-    lib = _library()
+    lib = _library(degree)
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream(img.device).cuda_stream
         rc = lib.curl_trispace_residual(
@@ -189,7 +225,7 @@ def _launch(
         )
     if rc != 0:
         msg = lib.curl_cuda_error_string(rc).decode()
-        raise RuntimeError(f"trispace kernel launch failed: {msg} ({rc})")
+        raise RuntimeError(f"trispace kernel launch failed at degree {degree}: {msg} ({rc})")
     LAUNCHES += 1
     return out
 
@@ -219,13 +255,14 @@ class _FusedTrispace(torch.autograd.Function):
     def forward(ctx, img, coeff_rgb, coeff_lab, coeff_hsv, row0, spatial,
                 total_h, total_w, composite):
         ctx.save_for_backward(img, coeff_rgb, coeff_lab, coeff_hsv)
-        ctx.cfg = (row0, spatial, total_h, total_w, composite)
+        ctx.cfg = (degree_of(coeff_rgb.shape[-1], spatial), row0, spatial, total_h, total_w,
+                   composite)
         return trispace_residual_op(img, coeff_rgb, coeff_lab, coeff_hsv, row0, total_h,
                                     total_w, spatial, composite)
 
     @staticmethod
     def backward(ctx, grad):
-        row0, spatial, total_h, total_w, composite = ctx.cfg
+        degree, row0, spatial, total_h, total_w, composite = ctx.cfg
         inputs = [t.detach().requires_grad_(need)
                   for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad[:4])]
         wanted = [t for t in inputs if t.requires_grad]
@@ -233,7 +270,7 @@ class _FusedTrispace(torch.autograd.Function):
         if wanted:
             with torch.enable_grad():
                 out = fused_trispace_residual_reference(
-                    *inputs, row0, degree=_KERNEL_DEGREE, spatial=spatial,
+                    *inputs, row0, degree=degree, spatial=spatial,
                     total_h=total_h, total_w=total_w, composite=composite,
                 )
                 grads = iter(torch.autograd.grad(out, wanted, grad))
@@ -260,8 +297,8 @@ def fused_trispace_residual(
 
     Tiling: `tile` = (row_offset, col_offset, total_h, total_w), or `row0`
     with `static_tile` = (col_offset, total_h, total_w). Bands must span the
-    full width (col_offset 0). A CUDA tensor launches the kernel (degree 4
-    only, at most 65,535 rows); a CPU tensor takes the plain version.
+    full width (col_offset 0). A CUDA tensor launches the kernel at any
+    degree >= 1 and any size; a CPU tensor takes the plain version.
     """
     b, h, w, _ = img.shape
     row0, col0, th, tw = _resolve_tile(img, row0, static_tile, tile)
@@ -278,8 +315,6 @@ def fused_trispace_residual(
         )
     if img.device.type != "cuda":
         raise ValueError(f"unsupported device {img.device}")
-    if degree != _KERNEL_DEGREE:
-        raise ValueError(f"the CUDA kernel is built for degree {_KERNEL_DEGREE}; got {degree}")
     if img.dtype == torch.uint8:
         # The quantized wire carries no gradient.
         return trispace_residual_op(img, coeff_rgb, coeff_lab, coeff_hsv, row0, th, tw,

@@ -1,18 +1,30 @@
 """One-time measurements of the port's kernels that `chip_smoke.py` does not
 repeat on every run, on one NVIDIA GPU:
 
-    python3 -m curl_tpu_torch.tools.kernel_probe
+    python3 -m curl_tpu_torch.tools.kernel_probe [--sweep D [D ...]]
+        [--parent DIR] [--no-sass] [--no-plain]
 
-1. K1's instance sweep. `csrc/trispace_kernel.cu` fixes its pixels per
+1. K1's instance sweep, at each degree D of `--sweep` (default 4). K1's
+   generated header (`ops/kernels/poly_tables.py`) fixes its pixels per
    thread (kPix), threads per block (kThreads) and the blocks per SM that
-   `__launch_bounds__` sizes registers for (kMinBlocks) as constants. For
-   each setting in K1_VARIANTS a copy of the source with those constants
-   replaced is built with the package's nvcc flags under
-   `build/curl_tpu_torch/probe/` (all builds in parallel), checked against
-   the built instance at 1080p batch 8 (max abs difference within 2e-4), and
-   timed with CUDA events in turns with it (built, variant, variant, built),
-   fp32 and u8 composite. ptxas's registers and spills of the spatial fp32
-   composite kernel are printed beside the times.
+   `__launch_bounds__` sizes registers for (kMinBlocks) for each degree. For
+   each setting in K1_VARIANTS[D] a copy of the header with those constants
+   replaced is written under `build/curl_tpu_torch/probe/`, the kernel's
+   source is built against it with the package's nvcc flags (all builds in
+   parallel), checked against the built instance at 1080p batch 8 (max abs
+   difference within 2e-4), and timed with CUDA events in turns with it
+   (built, variant, variant, built), fp32 and u8 composite. ptxas's
+   registers and spills of the spatial fp32 composite kernel are printed
+   beside the times.
+0. With `--parent DIR`, a checkout of another version of the repository
+   (`git archive`): its K1 and K2 sources are built with the same flags and
+   held bitwise against this version's degree-4 K1 and 16-knot K2 on the
+   inputs of `chip_smoke.py` phases 2 and 5 (fp32 residual and composite, a
+   row band at row0 = 540, odd 17x23, non-spatial, bf16, the u8 wire; K2 with
+   and without a mask, the runtime-count instance at (8, 12, 20)); ptxas's
+   registers and spills of every instance of both are printed side by side,
+   and the 1080p batch-8 times taken in turns (parent, this, this, parent;
+   K1 as bare library calls, K2 through the same knot preparation).
 2. The static SASS of the main-path instances of K1 and K2
    (`cuobjdump -sass`), by opcode. Both are fully unrolled, so the count is
    close to what a thread issues, apart from the slow paths of IEEE division
@@ -37,6 +49,7 @@ left as they were. Without CUDA it exits non-zero.
 
 from __future__ import annotations
 
+import argparse
 import collections
 import concurrent.futures
 import contextlib
@@ -52,8 +65,8 @@ import torch.nn.functional as F
 
 from curl_tpu_torch.models import curl_curve
 from curl_tpu_torch.ops import color_planes as cp
-from curl_tpu_torch.ops import curves
-from curl_tpu_torch.ops.kernels import build
+from curl_tpu_torch.ops import curves, poly
+from curl_tpu_torch.ops.kernels import build, poly_tables
 from curl_tpu_torch.ops.kernels import curve_kernel as ck
 from curl_tpu_torch.ops.kernels import trispace_kernel as tk
 
@@ -63,13 +76,26 @@ CURVE_KNOTS = (48, 48, 64)
 ITERS = 20
 TOL = 2e-4
 
-# (pixels per thread, threads per block, min blocks per SM). The built
-# instance is (2, 512, 2). Beside it: one pixel a thread at the same
-# budget, blocks of 512 and 2,048 pixels at the same 32 warps per SM, no
-# register cap (one block per SM asks for up to 255 registers) at 256 and
-# 512 threads and at one pixel a thread, and four pixels a thread.
-K1_VARIANTS = ((1, 512, 2), (2, 256, 4), (2, 1024, 1), (2, 256, 1), (2, 512, 1),
-               (1, 256, 1), (4, 512, 2))
+# (pixels per thread, threads per block, min blocks per SM) by degree, beside
+# each degree's built instance (poly_tables.LAUNCH). Degrees 2-4 (built 2,
+# 512, 2): one pixel a thread at the same budget, blocks of 512 and 2,048 pixels
+# at the same 32 warps per SM, no register cap (one block per SM asks for up
+# to 255 registers) at 256 and 512 threads and at one pixel a thread, and
+# four pixels a thread. Degrees 5 and 6 (built 2, 512, 1: 128 registers),
+# whose chains keep 70 and 126 monomials a pixel alive: degree 4's shape
+# (64 registers), one pixel at 64, 128, 168 (384 threads) and 255
+# registers, and two pixels at 255.
+_LOW = ((1, 512, 2), (2, 256, 4), (2, 1024, 1), (2, 256, 1), (2, 512, 1), (1, 256, 1),
+        (4, 512, 2))
+K1_VARIANTS = {
+    2: _LOW,
+    3: _LOW,
+    4: _LOW,
+    5: ((2, 512, 2), (1, 512, 2), (1, 512, 1), (1, 256, 2), (1, 384, 1), (1, 256, 1),
+        (2, 256, 1)),
+    6: ((2, 512, 2), (1, 512, 2), (1, 512, 1), (1, 256, 2), (1, 384, 1), (1, 256, 1),
+        (2, 256, 1)),
+}
 _K1_CONSTANTS = re.compile(r"constexpr int (kPix|kThreads|kMinBlocks) = \d+;")
 PROBE_DIR = build.BUILD_DIR / "probe"
 # Mangled-name fragments of the main-path kernels.
@@ -122,23 +148,38 @@ def registers(report: str, fragment: str) -> str:
     return "; ".join(found) or "?"
 
 
-def build_k1_variant(pixels: int, threads: int, min_blocks: int) -> tuple[Path, str]:
-    """Build K1 with other constants; returns (library, ptxas report)."""
+def k1_variant_header(degree: int, pixels: int, threads: int, min_blocks: int) -> str:
+    """`degree`'s generated header with other launch constants."""
     values = {"kPix": pixels, "kThreads": threads, "kMinBlocks": min_blocks}
     text, n = _K1_CONSTANTS.subn(lambda m: f"constexpr int {m[1]} = {values[m[1]]};",
-                                 (build.CSRC / "trispace_kernel.cu").read_text())
+                                 poly_tables.header(degree))
     if n != 3:
-        raise RuntimeError("trispace_kernel.cu must declare kPix, kThreads and kMinBlocks "
-                           f"as `constexpr int`; found {n}")
-    PROBE_DIR.mkdir(parents=True, exist_ok=True)
-    stem = f"trispace_kernel_p{pixels}_t{threads}_b{min_blocks}"
-    src, lib = PROBE_DIR / f"{stem}.cu", PROBE_DIR / f"lib{stem}.so"
-    src.write_text(text)
-    cmd = [build._nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC), "-o", str(lib), str(src)]
+        raise RuntimeError("K1's header must declare kPix, kThreads and kMinBlocks as "
+                           f"`constexpr int`; found {n}")
+    return text
+
+
+def nvcc(source: Path, include: Path, lib: Path) -> str:
+    """Build `source` with the package's flags; returns ptxas's report."""
+    cmd = [build._nvcc(), *build.NVCC_FLAGS, "-I", str(include), "-I", str(source.parent),
+           "-o", str(lib), str(source)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {stem}:\n{proc.stdout}{proc.stderr}")
-    return lib, proc.stdout + proc.stderr
+        raise RuntimeError(f"nvcc failed on {lib.name}:\n{proc.stdout}{proc.stderr}")
+    return proc.stdout + proc.stderr
+
+
+def build_k1_variant(degree: int, pixels: int, threads: int,
+                     min_blocks: int) -> tuple[Path, str]:
+    """Build K1 at `degree` with other constants; returns (library, ptxas
+    report)."""
+    stem = f"trispace_kernel_d{degree}_p{pixels}_t{threads}_b{min_blocks}"
+    include = PROBE_DIR / stem
+    include.mkdir(parents=True, exist_ok=True)
+    (include / poly_tables.HEADER).write_text(
+        k1_variant_header(degree, pixels, threads, min_blocks))
+    lib = PROBE_DIR / f"lib{stem}.so"
+    return lib, nvcc(build.CSRC / "trispace_kernel.cu", include, lib)
 
 
 def load_k1(path: Path) -> ctypes.CDLL:
@@ -150,44 +191,185 @@ def load_k1(path: Path) -> ctypes.CDLL:
     return lib
 
 
-def k1_composite(lib: ctypes.CDLL, img: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
-    """K1 of `lib` on a whole (B, H, W, 3) image, spatial composite."""
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2}
+
+
+def k1_composite(lib: ctypes.CDLL, img: torch.Tensor, packed: torch.Tensor, row0: int = 0,
+                 total=None, spatial: bool = True, composite: bool = True) -> torch.Tensor:
+    """K1 of `lib` on a (B, H, W, 3) image (by default whole, spatial,
+    composite) with packed (B, 3, N, 4) coefficients."""
     b, h, w, _ = img.shape
+    th, tw = total or (h, w)
     out = torch.empty_like(img)
     rc = lib.curl_trispace_residual(
-        img.data_ptr(), packed.data_ptr(), out.data_ptr(), b, h, w, 0, h, w, 1, 1,
-        {torch.float32: 0, torch.uint8: 2}[img.dtype], torch.cuda.current_stream().cuda_stream,
+        img.data_ptr(), packed.data_ptr(), out.data_ptr(), b, h, w, row0, th, tw, int(spatial),
+        int(composite), _DTYPES[img.dtype], torch.cuda.current_stream().cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"K1 launch failed ({rc})")
     return out
 
 
-def k1_sweep(card: str, rng) -> None:
-    jobs = [lambda: (build.build("trispace_kernel"), build.ptxas_report("trispace_kernel"))]
-    jobs += [lambda v=v: build_k1_variant(*v) for v in K1_VARIANTS]
+def pack(cs) -> torch.Tensor:
+    """The wrapper's (B, 3, N, 4) float4 layout of three (B, 3, N) stacks."""
+    return F.pad(torch.stack(cs, dim=1).float().transpose(2, 3), (0, 1)).contiguous()
+
+
+def entries(report: str) -> dict[str, str]:
+    """ptxas's registers and spill lines per kernel instance, keyed by the
+    kernel's name and template arguments (not its parameters)."""
+    found: dict[str, list[str]] = {}
+    key = None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            k = re.search(r"(trispace_residual_kernel|curve_enhance_kernel)I(.+?)EvP",
+                          m.group(1))
+            key = f"{k.group(1)}<{k.group(2)}>" if k else m.group(1)
+            found[key] = []
+        elif key and ("registers" in line or "spill" in line):
+            # Shared memory is left out: it is static in some versions and
+            # dynamic (not in the report) in others.
+            line = re.sub(r", \d+ bytes smem", "", line.strip())
+            found[key].append(re.sub(r".*(Used |info    : )", "", line))
+    return {k: "; ".join(v) for k, v in found.items()}
+
+
+def compare_parent(card: str, rng, parent: Path) -> None:
+    """Section 0: the parent's K1 and K2 against this version's, bitwise,
+    with ptxas's reports and times in turns."""
+    csrc = parent / "curl_tpu_torch" / "csrc"
+    out = PROBE_DIR / "parent"
+    out.mkdir(parents=True, exist_ok=True)
+    jobs = [lambda: nvcc(csrc / "trispace_kernel.cu", csrc, out / "libtrispace_kernel.so"),
+            lambda: nvcc(csrc / "curve_kernel.cu", csrc, out / "libcurve_kernel.so"),
+            lambda: (tk.build_library(4), ck._library())]
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
-        (built_path, built_report), *variants = pool.map(lambda job: job(), jobs)
+        k1_report, k2_report, _ = pool.map(lambda job: job(), jobs)
+    for what, theirs, ours in (("K1", k1_report, tk.ptxas_report(4)),
+                               ("K2", k2_report, build.ptxas_report("curve_kernel"))):
+        theirs, ours = entries(theirs), entries(ours)
+        for key in sorted(set(theirs) | set(ours)):
+            a, b = theirs.get(key, "absent"), ours.get(key, "absent")
+            log(f"{what} ptxas {key}: parent {a}; this " + ("the same" if a == b else b))
+    p_k1 = load_k1(out / "libtrispace_kernel.so")
+    p_k2 = ctypes.CDLL(str(out / "libcurve_kernel.so"))
+    p_k2.curl_curve_enhance.argtypes = (
+        [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    p_k2.curl_curve_enhance.restype = ctypes.c_int
+
+    def parent_k2(img, mask, *knots):
+        slopes, c0 = ck.prepare_knots(*[k.float() for k in knots])
+        slopes, c0 = slopes.contiguous(), c0.contiguous()
+        got = torch.empty_like(img)
+        b, h, w, _ = img.shape
+        rc = p_k2.curl_curve_enhance(
+            img.data_ptr(), None if mask is None else mask.data_ptr(), slopes.data_ptr(),
+            c0.data_ptr(), got.data_ptr(), b, h * w, *(k.shape[-1] for k in knots),
+            _DTYPES[img.dtype], torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"parent K2 launch failed ({rc})")
+        return got
+
+    def same(what, a, b):
+        torch.cuda.synchronize()
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what}: this version differs from the parent by "
+                                 f"{float((a.float() - b.float()).abs().max())}")
+        log(f"  {what}: bitwise the parent's")
+
     img = torch.from_numpy(rng.uniform(0, 1, (BATCH, HEIGHT, WIDTH, 3)).astype(np.float32)).cuda()
-    img8 = (img * 255).to(torch.uint8)
     cs = [torch.from_numpy(rng.normal(scale=0.2, size=(BATCH, 3, 126)).astype(np.float32)).cuda()
           for _ in range(3)]
+    packed = pack(cs)
+    log(f"K1 degree 4 against the parent's, 1080p batch {BATCH}")
+    for composite in (False, True):
+        same(f"fp32 composite={composite}",
+             tk.fused_trispace_residual(img, *cs, composite=composite),
+             k1_composite(p_k1, img, packed, composite=composite))
+    row0 = HEIGHT // 2
+    band = img[:, row0:].contiguous()
+    same(f"band at row0 = {row0}",
+         tk.fused_trispace_residual(band, *cs, tile=(row0, 0, HEIGHT, WIDTH), composite=True),
+         k1_composite(p_k1, band, packed, row0, (HEIGHT, WIDTH)))
+    img16, img8 = img.to(torch.bfloat16), (img * 255).to(torch.uint8)
+    for composite in (False, True):
+        same(f"bf16 composite={composite}",
+             tk.fused_trispace_residual(img16, *cs, composite=composite),
+             k1_composite(p_k1, img16, packed, composite=composite))
+    same("u8 wire", tk.fused_trispace_residual(img8, *cs, composite=True),
+         k1_composite(p_k1, img8, packed))
+    odd = torch.from_numpy(rng.uniform(0, 1, (1, 17, 23, 3)).astype(np.float32)).cuda()
+    c1 = [c[:1] for c in cs]
+    same("odd 17x23", tk.fused_trispace_residual(odd, *c1), k1_composite(
+        p_k1, odd, pack(c1), composite=False))
+    c35 = [c[:1, :, :35].contiguous() for c in cs]
+    same("non-spatial N=35", tk.fused_trispace_residual(odd, *c35, spatial=False),
+         k1_composite(p_k1, odd, pack(c35), spatial=False, composite=False))
+    # Both timed as bare library calls on the same packed coefficients: the
+    # wrapper's packing (stack, pad) would be charged to one side only.
+    this_k1 = tk._library(4)
+    for x in (img, img8):
+        p_ms, t_ms = in_turns(lambda: k1_composite(p_k1, x, packed),
+                              lambda: k1_composite(this_k1, x, packed), ITERS)
+        log(f"  K1 degree 4 1080p batch {BATCH} {x.dtype} composite: parent "
+            f"{p_ms[0]:.3f} / {p_ms[1]:.3f} ms, this {t_ms[0]:.3f} / {t_ms[1]:.3f} ms  [{card}]")
+    del img16, img8, band
+
+    log(f"K2 against the parent's, 1080p batch {BATCH}")
+    c_img, mask, knots = curve_inputs(rng, BATCH, HEIGHT, WIDTH, (16, 16, 16), std=0.05)
+    cases = {"fp32 mask": (c_img, mask), "fp32 no mask": (c_img, None),
+             "bf16 mask": (c_img.bfloat16(), mask.bfloat16()),
+             "u8 wire, u8 mask": ((c_img * 255).to(torch.uint8), mask.to(torch.uint8))}
+    for what, (x, m) in cases.items():
+        same(f"16 knots {what}", ck.fused_curve_enhance(x, m, *knots), parent_k2(x, m, *knots))
+    for counts in ((8, 12, 20), (2, 65, 5)):
+        args = curve_inputs(rng, 2, 96, 160, counts)
+        same(f"knot counts {counts}", ck.fused_curve_enhance(args[0], args[1], *args[2]),
+             parent_k2(args[0], args[1], *args[2]))
+    for what in ("fp32 no mask", "fp32 mask"):
+        x, m = cases[what]
+        p_ms, t_ms = in_turns(lambda: parent_k2(x, m, *knots),
+                              lambda: ck.fused_curve_enhance(x, m, *knots), ITERS)
+        log(f"  K2 16 knots 1080p batch {BATCH} {what}: parent {p_ms[0]:.3f} / {p_ms[1]:.3f} "
+            f"ms, this {t_ms[0]:.3f} / {t_ms[1]:.3f} ms  [{card}]")
+
+
+def k1_sweep(card: str, rng, degrees) -> None:
+    jobs = [lambda d=d: (tk.build_library(d), tk.ptxas_report(d)) for d in degrees]
+    jobs += [lambda d=d, v=v: build_k1_variant(d, *v) for d in degrees for v in K1_VARIANTS[d]]
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        results = list(pool.map(lambda job: job(), jobs))
+    built_libs, variants = results[:len(degrees)], iter(results[len(degrees):])
+    img = torch.from_numpy(rng.uniform(0, 1, (BATCH, HEIGHT, WIDTH, 3)).astype(np.float32)).cuda()
+    img8 = (img * 255).to(torch.uint8)
+    for degree, (built_path, built_report) in zip(degrees, built_libs):
+        _sweep_degree(card, rng, degree, img, img8, load_k1(built_path), built_report,
+                      [next(variants) for _ in K1_VARIANTS[degree]])
+
+
+def _sweep_degree(card, rng, degree, img, img8, built, built_report, variants) -> None:
+    n = poly.num_monomials(degree, 5)
+    cs = [torch.from_numpy(rng.normal(scale=0.2, size=(BATCH, 3, n)).astype(np.float32)).cuda()
+          for _ in range(3)]
     packed = F.pad(torch.stack(cs, dim=1).transpose(2, 3), (0, 1)).contiguous()
-    built = load_k1(built_path)
     ref = k1_composite(built, img, packed)
-    log(f"K1 built instance (2 px, 512 threads, 2 blocks): {registers(built_report, K1_MAIN)}")
-    for (pixels, threads, min_blocks), (path, report) in zip(K1_VARIANTS, variants):
+    pixels, threads, min_blocks = poly_tables.launch_shape(degree)
+    log(f"K1 degree {degree} built instance ({pixels} px, {threads} threads, {min_blocks} "
+        f"blocks): {registers(built_report, K1_MAIN)}")
+    for (pixels, threads, min_blocks), (path, report) in zip(K1_VARIANTS[degree], variants):
         lib = load_k1(path)
         diff = float((k1_composite(lib, img, packed) - ref).abs().max())
         if diff > TOL:
-            raise AssertionError(f"K1 {pixels}/{threads}/{min_blocks} differs by {diff}")
+            raise AssertionError(f"K1 degree {degree} {pixels}/{threads}/{min_blocks} differs "
+                                 f"by {diff}")
         times = []
         for x in (img, img8):
             b_ms, v_ms = in_turns(lambda: k1_composite(built, x, packed),
                                   lambda: k1_composite(lib, x, packed), ITERS)
             times.append(f"built {b_ms[0]:.3f} / {b_ms[1]:.3f} ms, this {v_ms[0]:.3f} / "
                          f"{v_ms[1]:.3f} ms")
-        log(f"K1 {pixels} px, {threads} threads, {min_blocks} blocks: "
+        log(f"K1 degree {degree}, {pixels} px, {threads} threads, {min_blocks} blocks: "
             f"{registers(report, K1_MAIN)}; max abs diff {diff:.3e}; 1080p batch {BATCH} "
             f"composite fp32: {times[0]}; u8: {times[1]}  [{card}]")
 
@@ -337,7 +519,14 @@ def plain_costs(card: str, rng) -> None:
             f"{', '.join(peaks)}  [{card}]")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--sweep", type=int, nargs="*", default=[4],
+                        help="degrees whose K1 launch shapes to sweep (none: skip)")
+    parser.add_argument("--parent", type=Path, help="checkout to hold K1 and K2 against")
+    parser.add_argument("--no-sass", action="store_true", help="skip the SASS opcode counts")
+    parser.add_argument("--no-plain", action="store_true", help="skip the plain versions' costs")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_probe: CUDA is not available; this runs on an NVIDIA GPU", file=sys.stderr)
         return 2
@@ -345,12 +534,18 @@ def main() -> int:
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     rng = np.random.default_rng(0)
     saved = tk.LAUNCHES, ck.LAUNCHES
-    k1_sweep(card, rng)
-    for name, fragment in (("trispace_kernel", K1_MAIN), ("curve_kernel", K2_MAIN)):
-        counts = sass_histogram(build.build(name), fragment)
-        top = ", ".join(f"{op} {n}" for op, n in counts.most_common(24))
-        log(f"{name} SASS of {fragment}: {sum(counts.values())} instructions; {top}")
-    plain_costs(card, rng)
+    if args.parent:
+        compare_parent(card, rng, args.parent)
+    if args.sweep:
+        k1_sweep(card, rng, args.sweep)
+    if not args.no_sass:
+        for lib, name, fragment in ((tk.build_library(4), "trispace_kernel", K1_MAIN),
+                                    (build.build("curve_kernel"), "curve_kernel", K2_MAIN)):
+            counts = sass_histogram(lib, fragment)
+            top = ", ".join(f"{op} {n}" for op, n in counts.most_common(24))
+            log(f"{name} SASS of {fragment}: {sum(counts.values())} instructions; {top}")
+    if not args.no_plain:
+        plain_costs(card, rng)
     tk.LAUNCHES, ck.LAUNCHES = saved
     return 0
 

@@ -21,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from curl_tpu_torch.ops import enhance
+from curl_tpu_torch.ops import enhance, poly
 from curl_tpu_torch.ops.kernels import curve_kernel as ck
 from curl_tpu_torch.ops.kernels import trispace_kernel as tk
 
@@ -152,12 +152,63 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         tk.fused_trispace_residual(torch.zeros(1, 8, 8, 4, device=cuda), *cs)
     with pytest.raises(ValueError, match="contiguous"):
         tk.fused_trispace_residual(img.transpose(1, 2), *cs)
-    with pytest.raises(ValueError, match="degree"):
-        tk.fused_trispace_residual(img, *[c[..., :56].contiguous() for c in cs], degree=3)
+    with pytest.raises(ValueError, match="degrees >= 1"):
+        tk.fused_trispace_residual(img, *[c[..., :1].contiguous() for c in cs], degree=0)
     with pytest.raises(ValueError, match="composite=True"):
         tk.fused_trispace_residual(img.to(torch.uint8), *cs)
-    with pytest.raises(ValueError, match="65535 rows"):
-        tk.fused_trispace_residual(torch.zeros(1, 65536, 1, 3, device=cuda), *cs)
+
+
+@pytest.mark.parametrize("spatial", [True, False], ids=["spatial", "non_spatial"])
+@pytest.mark.parametrize("degree", [1, 2, 3, 5, 6, 7])
+def test_kernel_matches_plain_at_every_degree(cuda, degree, spatial):
+    """K1 built for another degree (its own library), residual and
+    composite on a ragged 17x23 and a band of a taller image, and the u8
+    wire, against the plain version at that degree. Degree 7's spatial
+    instance stages 53,856 B of coefficients: past the 48 KB a kernel gets
+    without opting in."""
+    n = poly.num_monomials(degree, 3 + 2 * int(spatial))
+    img, cs = _inputs(30 + degree, 2, 17, 23, n)
+    kw = dict(degree=degree, spatial=spatial)
+    for extra in (dict(), dict(composite=True), dict(tile=(40, 0, 100, 23))):
+        before = tk.LAUNCHES
+        got = tk.fused_trispace_residual(img, *cs, **kw, **extra)
+        torch.cuda.synchronize()
+        assert tk.LAUNCHES == before + 1
+        err = float((got - _plain(img, cs, **kw, **extra)).abs().max())
+        assert err <= 2e-4, (extra, err)
+    img8 = (img * 255).to(torch.uint8)
+    _u8_close(tk.fused_trispace_residual(img8, *cs, composite=True, **kw),
+              _plain(img8, cs, composite=True, **kw))
+
+
+@pytest.mark.parametrize("degree", [3, 5])
+def test_gradients_at_other_degrees(cuda, degree):
+    """The autograd.Function's backward runs the plain version at the
+    call's degree."""
+    img, cs = _inputs(40 + degree, 1, 32, 32, poly.num_monomials(degree, 5))
+    img = img.clamp(0.2, 0.8)
+    weight = torch.randn(img.shape, generator=torch.Generator().manual_seed(1)).to(cuda)
+    a = [c.clone().requires_grad_() for c in cs]
+    b = [c.clone().requires_grad_() for c in cs]
+    (tk.fused_trispace_residual(img, *a, degree=degree, composite=True) * weight).sum().backward()
+    (_plain(img, b, degree=degree, composite=True) * weight).sum().backward()
+    for x, y in zip(a, b):
+        assert float(x.grad.abs().max()) > 0
+        torch.testing.assert_close(x.grad, y.grad, rtol=1e-4, atol=1e-4)
+
+
+def test_kernel_past_the_grid_limits(cuda):
+    """70,000 rows (past grid.y's 65,535) and 70,000 images (past grid.z's)
+    run as chunked launches of one call, each row at its own y."""
+    img, cs = _inputs(50, 1, 70_000, 16)
+    before = tk.LAUNCHES
+    got = tk.fused_trispace_residual(img, *cs)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES == before + 1
+    assert float((got - _plain(img, cs)).abs().max()) <= 2e-4
+    many, cs = _inputs(51, 70_000, 2, 3, 35)
+    got = tk.fused_trispace_residual(many, *cs, spatial=False, composite=True)
+    assert float((got - _plain(many, cs, spatial=False, composite=True)).abs().max()) <= 2e-4
 
 
 def test_enhance_paths_agree(cuda):
@@ -238,6 +289,43 @@ def test_curve_u8_wire_matches_plain(cuda, counts, masked):
     mask = mask.to(torch.uint8) if masked else None
     got = ck.fused_curve_enhance(img, mask, *knots)
     _u8_close(got, ck.fused_curve_enhance_reference(img, mask, *knots))
+
+
+@pytest.mark.parametrize("counts", [(66, 66, 66), (96, 96, 96), (257, 257, 257), (2, 96, 257),
+                                    (513, 2, 2)], ids=["66", "96", "257", "mixed", "513"])
+def test_curve_kernel_at_many_knots(cuda, counts):
+    """Knot counts past the first design's 65: the runtime-count instance
+    with its tables in dynamic shared memory (61,480 B at 513 knots, past
+    the 48 KB a kernel gets without opting in) and several runs of 256
+    pixels a block, with and without a mask, fp32, bf16 and the u8 wire. Knot logits
+    of std 0.05 * 15 / n_seg keep the curves as steep as 16 knots at 0.05:
+    iid knots at 0.05 make a 257-knot curve 17x as steep, and the ten chained
+    curves then part fp32 from float64 in the plain version itself by up to
+    6e-2 (tests/test_torch_poly_degrees.py)."""
+    img, mask, *knots = _curve_inputs(60, 2, 57, 71, counts, std=0.05 * 15 / (max(counts) - 1))
+    for m in (mask, None):
+        before = ck.LAUNCHES
+        got = ck.fused_curve_enhance(img, m, *knots)
+        torch.cuda.synchronize()
+        assert ck.LAUNCHES == before + 1
+        assert float((got - ck.fused_curve_enhance_reference(img, m, *knots)).abs().max()) <= 2e-4
+    got16 = ck.fused_curve_enhance(img.bfloat16(), mask.bfloat16(), *knots)
+    err = (got16.float() - ck.fused_curve_enhance_reference(
+        img.bfloat16(), mask.bfloat16(), *knots).float()).abs()
+    assert float(torch.quantile(err.flatten(), 0.999)) <= 1e-2
+    img8 = (img * 255).to(torch.uint8)
+    _u8_close(ck.fused_curve_enhance(img8, mask.to(torch.uint8), *knots),
+              ck.fused_curve_enhance_reference(img8, mask.to(torch.uint8), *knots))
+
+
+def test_curve_kernel_past_the_grid_limit(cuda):
+    """70,000 images (past grid.y's 65,535) run as chunked launches."""
+    img, mask, *knots = _curve_inputs(61, 70_000, 2, 3, (16, 16, 16))
+    got = ck.fused_curve_enhance(img, mask, *knots)
+    assert float((got - ck.fused_curve_enhance_reference(img, mask, *knots)).abs().max()) <= 2e-4
+    img, mask, *knots = _curve_inputs(62, 70_000, 2, 3, (8, 12, 20))
+    got = ck.fused_curve_enhance(img, None, *knots)
+    assert float((got - ck.fused_curve_enhance_reference(img, None, *knots)).abs().max()) <= 2e-4
 
 
 def test_curve_kernel_large_knots_quantile(cuda):

@@ -38,6 +38,7 @@ MODULES = [
     "curl_tpu_torch.ops.kernels.build",
     "curl_tpu_torch.ops.kernels.clip_kernel",
     "curl_tpu_torch.ops.kernels.curve_kernel",
+    "curl_tpu_torch.ops.kernels.poly_tables",
     "curl_tpu_torch.ops.kernels.trispace_kernel",
     "curl_tpu_torch.parallel",
     "curl_tpu_torch.parallel.distributed",

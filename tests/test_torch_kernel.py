@@ -8,7 +8,6 @@ tests/test_torch_cuda.py). Tolerance 5e-5 (docs/PARITY.md section 3).
 """
 
 import re
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -24,9 +23,9 @@ from curl_tpu.ops import enhance as jenhance  # noqa: E402
 from curl_tpu.ops.pallas import fused_trispace_residual as jax_fused  # noqa: E402
 from curl_tpu_torch.ops import enhance as tenhance  # noqa: E402
 from curl_tpu_torch.ops import poly as tpoly  # noqa: E402
+from curl_tpu_torch.ops.kernels import poly_tables  # noqa: E402
 from curl_tpu_torch.ops.kernels import trispace_kernel as tk  # noqa: E402
 
-CU_SOURCE = Path(tk.__file__).resolve().parents[2] / "csrc" / "trispace_kernel.cu"
 
 
 def _inputs(rng, b, h, w, n=126):
@@ -168,10 +167,9 @@ def test_autograd_function_backward_matches_jax(rng, monkeypatch):
         np.testing.assert_allclose(c.grad.numpy(), np.asarray(g), atol=5e-4, rtol=1e-4)
 
 
-def _parse_chain(name: str):
-    text = CU_SOURCE.read_text()
+def _parse_chain(text: str, name: str):
     m = re.search(rf"constexpr int {name}\[(\d+)\]\[2\] = \{{(.*?)\}};", text, re.S)
-    assert m, f"{name} not found in {CU_SOURCE}"
+    assert m, f"{name} not found"
     pairs = tuple(
         (int(a), int(b)) for a, b in re.findall(r"\{\s*(\d+)\s*,\s*(\d+)\s*\}", m.group(2))
     )
@@ -179,8 +177,42 @@ def _parse_chain(name: str):
     return pairs
 
 
+@pytest.mark.parametrize("degree", range(1, 7))
 @pytest.mark.parametrize("name,num_vars", [("kChain4", 4), ("kChain3", 3)])
-def test_cuda_chain_tables_equal_monomial_chain(name, num_vars):
-    """kChain4 is the spatial chain over (c1, c2, c3, x) once y is folded
-    into the coefficients; kChain3 the non-spatial one."""
-    assert _parse_chain(name) == tpoly.monomial_chain(4, num_vars)
+def test_cuda_chain_tables_equal_monomial_chain(name, num_vars, degree):
+    """The chain tables of the header K1 is built with at each degree:
+    kChain4 is the spatial chain over (c1, c2, c3, x) once y is folded into
+    the coefficients; kChain3 the non-spatial one."""
+    text = poly_tables.header(degree)
+    assert _parse_chain(text, name) == tpoly.monomial_chain(degree, num_vars)
+    assert f"constexpr int kDegree = {degree};" in text
+
+
+# The degree-4 chain tables as the kernel's source carried them before they
+# were generated (trispace_kernel.cu of the first Hopper redesign).
+SHIPPED_CHAINS = {
+    "kChain4": """constexpr int kChain4[69][2] = {
+    {0, 0}, {0, 1}, {0, 2}, {0, 3}, {1, 0}, {2, 0}, {3, 0}, {4, 0}, {2, 1}, {3, 1},
+    {4, 1}, {3, 2}, {4, 2}, {4, 3}, {5, 0}, {6, 0}, {7, 0}, {8, 0}, {9, 0}, {10, 0},
+    {11, 0}, {12, 0}, {13, 0}, {14, 0}, {9, 1}, {10, 1}, {11, 1}, {12, 1}, {13, 1}, {14, 1},
+    {12, 2}, {13, 2}, {14, 2}, {14, 3}, {15, 0}, {16, 0}, {17, 0}, {18, 0}, {19, 0}, {20, 0},
+    {21, 0}, {22, 0}, {23, 0}, {24, 0}, {25, 0}, {26, 0}, {27, 0}, {28, 0}, {29, 0}, {30, 0},
+    {31, 0}, {32, 0}, {33, 0}, {34, 0}, {25, 1}, {26, 1}, {27, 1}, {28, 1}, {29, 1}, {30, 1},
+    {31, 1}, {32, 1}, {33, 1}, {34, 1}, {31, 2}, {32, 2}, {33, 2}, {34, 2}, {34, 3},
+};""",
+    "kChain3": """constexpr int kChain3[34][2] = {
+    {0, 0}, {0, 1}, {0, 2}, {1, 0}, {2, 0}, {3, 0}, {2, 1}, {3, 1}, {3, 2}, {4, 0},
+    {5, 0}, {6, 0}, {7, 0}, {8, 0}, {9, 0}, {7, 1}, {8, 1}, {9, 1}, {9, 2}, {10, 0},
+    {11, 0}, {12, 0}, {13, 0}, {14, 0}, {15, 0}, {16, 0}, {17, 0}, {18, 0}, {19, 0}, {16, 1},
+    {17, 1}, {18, 1}, {19, 1}, {19, 2},
+};""",
+}
+
+
+@pytest.mark.parametrize("name", sorted(SHIPPED_CHAINS))
+def test_generated_degree_4_chains_equal_the_shipped_literals(name):
+    """Degree 4's generated chain tables are the literals K1 shipped with,
+    as parsed tables and as text."""
+    text = poly_tables.header(4)
+    assert _parse_chain(text, name) == _parse_chain(SHIPPED_CHAINS[name], name)
+    assert SHIPPED_CHAINS[name] in text

@@ -7,11 +7,12 @@ K1's per-row y-fold (its table parsed from the CUDA source) against the
 sum (bitwise), the never-materialized all-ones mask (bitwise), and the u8
 modes of the plain versions and of `Enhancer` against the unfused chain
 (bitwise). The last two check what `tools/kernel_probe.py` relies on: the
-K1 constants it rewrites, and its `torch.clamp` stand-ins for `clip`.
+K1 constants it rewrites, and its `torch.clamp` stand-ins for `clip`. K1's
+tables are read from the header `ops/kernels/poly_tables.py` generates for
+each degree, which the kernel is built with.
 """
 
 import re
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -23,24 +24,22 @@ from curl_tpu_torch.models.trispace import TriSpacePolyNet
 from curl_tpu_torch.ops import color_planes as cp
 from curl_tpu_torch.ops import coords, poly, wire
 from curl_tpu_torch.ops.kernels import curve_kernel as ck
+from curl_tpu_torch.ops.kernels import poly_tables
 from curl_tpu_torch.ops.kernels import trispace_kernel as tk
 from curl_tpu_torch.tools import kernel_probe
 
-CSRC = Path(tk.__file__).resolve().parents[2] / "csrc"
 
-
-def _table(source: str, name: str) -> tuple:
-    """The rows of the C array `name[R][C] = {{...}, ...};` in csrc/<source>."""
-    text = (CSRC / source).read_text()
+def _table(text: str, name: str) -> tuple:
+    """The rows of the C array `name[R][C] = {{...}, ...};` in `text`."""
     m = re.search(rf"\b{name}\[(\d+)\]\[(\d+)\] = \{{(.*?)\}};", text, re.S)
-    assert m, f"{name} not found in {source}"
+    assert m, f"{name} not found"
     rows = tuple(tuple(int(x) for x in r.split(","))
                  for r in re.findall(r"\{([-\d,\s]+)\}", m.group(3)))
     assert len(rows) == int(m.group(1)) and {len(r) for r in rows} == {int(m.group(2))}
     return rows
 
 
-def _fold_map(degree: int = 4) -> tuple:
+def _fold_map(degree: int) -> tuple:
     """For each monomial q of (c1, c2, c3, x), the index of q * y^e among the
     monomials of (c1, c2, c3, x, y), e = 0..degree (-1 past the degree)."""
     index4 = {p: i for i, p in enumerate(poly.monomial_powers(degree, 4))}
@@ -50,15 +49,55 @@ def _fold_map(degree: int = 4) -> tuple:
     return tuple(map(tuple, fold))
 
 
-def test_fold_table_equals_monomial_powers():
-    assert _table("trispace_kernel.cu", "kFoldY") == _fold_map()
+@pytest.mark.parametrize("degree", range(1, 7))
+def test_fold_table_equals_monomial_powers(degree):
+    """kFoldY of each degree's header, and the counts beside it."""
+    text = poly_tables.header(degree)
+    fold = _table(text, "kFoldY")
+    assert fold == _fold_map(degree)
+    assert f"constexpr int kSpatialRaw = {poly.num_monomials(degree, 5)};" in text
+    assert f"constexpr int kFolded = {len(fold)};" in text
+    assert f"constexpr int kPlain = {poly.num_monomials(degree, 3)};" in text
+    # Indices reach C(D+5, 5) - 1: 251 at degree 5, past what int8 holds.
+    assert "const int16_t kFoldY" in text
+    assert max(max(r) for r in fold) == poly.num_monomials(degree, 5) - 1
 
 
-def _fold_y(coeffs: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """The kernel's prologue in plain torch: (B, 3, 126) coefficients and
-    (R,) row coordinates -> (B, R, 3, 70), c'_q = sum_e c_(q,e) y^e by Horner
-    from the highest power of y, with the fold table of the CUDA source."""
-    fold = torch.tensor(_table("trispace_kernel.cu", "kFoldY"))
+# The degree-4 fold table as the kernel's source carried it before it was
+# generated (trispace_kernel.cu of the first Hopper redesign, as int8_t).
+SHIPPED_FOLD = """kFoldY[70][5] = {
+    {0, 5, 20, 55, 125}, {1, 10, 35, 90, -1}, {2, 14, 45, 110, -1}, {3, 17, 51, 120, -1}, {4, 19, 54, 124, -1},
+    {6, 25, 70, -1, -1}, {7, 29, 80, -1, -1}, {8, 32, 86, -1, -1}, {9, 34, 89, -1, -1}, {11, 39, 100, -1, -1},
+    {12, 42, 106, -1, -1}, {13, 44, 109, -1, -1}, {15, 48, 116, -1, -1}, {16, 50, 119, -1, -1}, {18, 53, 123, -1, -1},
+    {21, 60, -1, -1, -1}, {22, 64, -1, -1, -1}, {23, 67, -1, -1, -1}, {24, 69, -1, -1, -1}, {26, 74, -1, -1, -1},
+    {27, 77, -1, -1, -1}, {28, 79, -1, -1, -1}, {30, 83, -1, -1, -1}, {31, 85, -1, -1, -1}, {33, 88, -1, -1, -1},
+    {36, 94, -1, -1, -1}, {37, 97, -1, -1, -1}, {38, 99, -1, -1, -1}, {40, 103, -1, -1, -1}, {41, 105, -1, -1, -1},
+    {43, 108, -1, -1, -1}, {46, 113, -1, -1, -1}, {47, 115, -1, -1, -1}, {49, 118, -1, -1, -1}, {52, 122, -1, -1, -1},
+    {56, -1, -1, -1, -1}, {57, -1, -1, -1, -1}, {58, -1, -1, -1, -1}, {59, -1, -1, -1, -1}, {61, -1, -1, -1, -1},
+    {62, -1, -1, -1, -1}, {63, -1, -1, -1, -1}, {65, -1, -1, -1, -1}, {66, -1, -1, -1, -1}, {68, -1, -1, -1, -1},
+    {71, -1, -1, -1, -1}, {72, -1, -1, -1, -1}, {73, -1, -1, -1, -1}, {75, -1, -1, -1, -1}, {76, -1, -1, -1, -1},
+    {78, -1, -1, -1, -1}, {81, -1, -1, -1, -1}, {82, -1, -1, -1, -1}, {84, -1, -1, -1, -1}, {87, -1, -1, -1, -1},
+    {91, -1, -1, -1, -1}, {92, -1, -1, -1, -1}, {93, -1, -1, -1, -1}, {95, -1, -1, -1, -1}, {96, -1, -1, -1, -1},
+    {98, -1, -1, -1, -1}, {101, -1, -1, -1, -1}, {102, -1, -1, -1, -1}, {104, -1, -1, -1, -1}, {107, -1, -1, -1, -1},
+    {111, -1, -1, -1, -1}, {112, -1, -1, -1, -1}, {114, -1, -1, -1, -1}, {117, -1, -1, -1, -1}, {121, -1, -1, -1, -1},
+};"""
+
+
+def test_generated_degree_4_fold_equals_the_shipped_literal():
+    """Degree 4's generated fold table and counts are what K1 shipped with."""
+    text = poly_tables.header(4)
+    assert _table(text, "kFoldY") == _table(SHIPPED_FOLD, "kFoldY")
+    assert SHIPPED_FOLD in text
+    for line in ("kSpatialRaw = 126;", "kFolded = 70;", "kPlain = 35;"):
+        assert f"constexpr int {line}" in text
+
+
+def _fold_y(coeffs: torch.Tensor, y: torch.Tensor, degree: int) -> torch.Tensor:
+    """The kernel's prologue in plain torch: (B, 3, C(D+5, 5)) coefficients
+    and (R,) row coordinates -> (B, R, 3, C(D+4, 4)), c'_q = sum_e c_(q,e) y^e
+    by Horner from the highest power of y, with the fold table of the
+    degree's header."""
+    fold = torch.tensor(_table(poly_tables.header(degree), "kFoldY"))
     b, r = coeffs.shape[0], y.shape[0]
     acc = torch.zeros(b, r, 3, fold.shape[0], dtype=coeffs.dtype)
     yy = y[None, :, None, None]
@@ -69,28 +108,31 @@ def _fold_y(coeffs: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+@pytest.mark.parametrize("degree", [2, 4, 6])
 @pytest.mark.parametrize("row0,total_h", [(0, 7), (5, 40), (33, 41), (1000, 1080)])
-def test_y_fold_equals_five_variable_polynomial(row0, total_h):
-    """Per row, the folded 70-term polynomial in (c1, c2, c3, x) equals the
-    126-term one in (c1, c2, c3, x, y), y = (row + row0) / total_h as
-    `ops.coords` forms it: to 1e-12 in float64, which checks the fold table.
-    In float32 the fold reorders the sums, and both forms are ~1e-6 from the
-    float64 value (outputs up to ~2); the folded one must be no further from
-    it than 1.5 times the unfolded one."""
+def test_y_fold_equals_five_variable_polynomial(row0, total_h, degree):
+    """Per row, the folded C(D+4, 4)-term polynomial in (c1, c2, c3, x)
+    (70 at degree 4) equals the C(D+5, 5)-term one in (c1, c2, c3, x, y)
+    (126), y = (row + row0) / total_h as `ops.coords` forms it: to 1e-12 in
+    float64, which checks the fold table. In float32 the fold reorders the
+    sums, and both forms are ~1e-6 from the float64 value (outputs up to
+    ~2); the folded one must be no further from it than 1.5 times the
+    unfolded one."""
     rng = np.random.default_rng(row0)
     b, h, w = 2, 7, 33
+    n_raw, n_fold = poly.num_monomials(degree, 5), poly.num_monomials(degree, 4)
     planes = torch.from_numpy(rng.uniform(0, 1, (b, h, w, 3)))
-    cf = torch.from_numpy(rng.normal(scale=0.3, size=(b, 3, 126)))
+    cf = torch.from_numpy(rng.normal(scale=0.3, size=(b, 3, n_raw)))
 
     def both(dtype):
         """(126-term, folded) outputs in `dtype`."""
         xy = coords.coord_channels(b, h, w, dtype, row_offset=row0, total_height=total_h,
                                    total_width=w)
         x, c = planes.to(dtype), cf.to(dtype)
-        full = poly.poly_apply(torch.cat([x, xy], dim=-1), c, degree=4)
-        folded = _fold_y(c, xy[0, :, 0, 1])  # (B, H, 3, 70)
+        full = poly.poly_apply(torch.cat([x, xy], dim=-1), c, degree=degree)
+        folded = _fold_y(c, xy[0, :, 0, 1], degree)  # (B, H, 3, n_fold)
         x4 = torch.cat([x, xy[..., :1]], dim=-1).reshape(b * h, 1, w, 4)
-        got = poly.poly_apply(x4, folded.reshape(b * h, 3, 70), degree=4)
+        got = poly.poly_apply(x4, folded.reshape(b * h, 3, n_fold), degree=degree)
         return full.double(), got.reshape(b, h, w, 3).double()
 
     truth, folded64 = both(torch.float64)
@@ -236,14 +278,21 @@ def test_enhancer_u8_wire_equals_unfused_chain(family, impl):
     assert torch.equal(got, wire.quantize_u8(unfused.enhance_image(*batch)))
 
 
-def test_probe_rewrites_the_built_k1_constants():
+@pytest.mark.parametrize("degree", [4, 5, 6])
+def test_probe_rewrites_the_built_k1_constants(degree):
     """`tools/kernel_probe.py` builds K1's other instances by rewriting the
-    three constants of the source: they must be there, at the built values."""
-    text = (CSRC / "trispace_kernel.cu").read_text()
+    three constants of a degree's header: they must be there, at the built
+    values, and the sweep must try others."""
+    text = poly_tables.header(degree)
     found = {m[1]: int(m[0].split("= ")[1].rstrip(";"))
              for m in kernel_probe._K1_CONSTANTS.finditer(text)}
-    assert found == {"kPix": 2, "kThreads": 512, "kMinBlocks": 2}
-    assert (2, 512, 2) not in kernel_probe.K1_VARIANTS
+    built = poly_tables.launch_shape(degree)
+    assert found == dict(zip(("kPix", "kThreads", "kMinBlocks"), built))
+    if degree == 4:
+        assert built == (2, 512, 2)
+    variants = kernel_probe.K1_VARIANTS[degree]
+    assert variants and built not in variants
+    assert "kPix = 3" in kernel_probe.k1_variant_header(degree, 3, 128, 1)
 
 
 @pytest.mark.parametrize("family", ["polynomial", "curve"])
