@@ -10,8 +10,9 @@ Phases, each of which fails the run:
      and K2 (csrc/curve_kernel.cu) from the checkout, K1 once for each
      polynomial degree it runs here (4, and 1, 2, 3, 5, 6 for phase 15: one
      library a degree, its tables generated by ops/kernels/poly_tables.py),
-     one nvcc each, all started together; print each build's time and the
-     ptxas reports.
+     one nvcc each, all started together; print each build's time, the
+     registers, stack and spills ptxas reports for every instance of each K1
+     library, and K2's report.
   2. K1 against its plain version on the card: 1080p batch 8 fp32 (residual
      and composite), a 1080p row band at row0 = 540 (the y-fold) against the
      plain version and the whole-image slice, odd 17x23, a small row band,
@@ -254,7 +255,6 @@ KERNEL_SOURCE = "curl_tpu_torch/csrc/trispace_kernel.cu"
 KERNEL_REPLACES = "curl_tpu/ops/pallas/trispace_kernel.py:70"
 CURVE_SOURCE = "curl_tpu_torch/csrc/curve_kernel.cu"
 CURVE_REPLACES = "curl_tpu/ops/pallas/curve_kernel.py:60"
-KERNELS = ("trispace_kernel", "curve_kernel")
 CLIP_SOURCE = "curl_tpu_torch/csrc/tie_clip_grad.cu"
 CLIP_REPLACES = ("none: jnp.clip's gradient, which XLA fuses (e.g. curl_tpu/ops/curves.py:69, "
                  "the ramp clip)")
@@ -2322,11 +2322,14 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"  K3 ({CLIP_SOURCE}) compiled by NVRTC through torch.cuda.jiterator at its first "
         f"launch: {time.perf_counter() - t0:.1f} s")
-    for name, report in zip(KERNELS, (tk.ptxas_report(4), build.ptxas_report("curve_kernel"))):
-        for line in report.splitlines():
-            if ("registers" in line or "spill" in line or "Compiling entry" in line
-                    or "smem" in line):
-                log(f"  ptxas {name}: {line.strip()}")
+    from curl_tpu_torch.tools import kernel_probe
+
+    for degree in (4,) + OTHER_DEGREES:
+        for instance, line in sorted(kernel_probe.entries(tk.ptxas_report(degree)).items()):
+            log(f"  ptxas trispace_kernel degree {degree} {instance}: {line}")
+    for line in build.ptxas_report("curve_kernel").splitlines():
+        if "registers" in line or "spill" in line or "Compiling entry" in line or "smem" in line:
+            log(f"  ptxas curve_kernel: {line.strip()}")
 
     log("phase 2: K1 against its plain version")
     max_abs_err = check_kernel(tk, dev, rng)

@@ -39,15 +39,28 @@
 //   instead of 3, which halves the shared loads per pixel.
 // - Occupancy before reuse. The color math's dependent sequences need many
 //   warps to hide their latency. __launch_bounds__(512, 2) holds the kernel
-//   to 64 registers, so two blocks of 16 warps share an SM; the second
-//   pixel's monomials then spill ~200 B to L1, which costs less than the
+//   to 64 registers, so two blocks of 16 warps share an SM; at degree 4 a
+//   120 B stack in L1 takes what does not fit, which costs less than the
 //   warps it buys. A block covers 1,024 pixels of a row, so its prologue
 //   (staging, fold, two barriers) is paid once per 1,024 pixels. These
 //   settings were the fastest of a one-time sweep on the card against one
 //   pixel a thread, 256- and 1,024-thread blocks and no register cap
-//   (PERF.md). The chain keeps C(D+3, 4) monomials a pixel alive (35 at
-//   D = 4, 70 at 5, 126 at 6), so degrees above 4 take their own shape
-//   (poly_tables.LAUNCH), swept the same way.
+//   (PERF.md). From degree 5 on, blocks of 1,024 threads at the same 64
+//   registers and 32 warps an SM were faster: the prologue stages and folds
+//   3 x C(D+5, 5) coefficients (252 at D = 5, 462 at 6), and a block of
+//   2,048 pixels pays it half as often (poly_tables.LAUNCH).
+// - The chain's order (poly_tables.ORDER). Degrees 1-4 run the graded
+//   order of ops/poly.py, in which every monomial of degree D - 1 stays
+//   live until its last child is formed: C(D+2, 3) a pixel over (c1, c2,
+//   c3, x), 20 at D = 4, 35 at 5 and 56 at 6 (70 and 112 floats for two
+//   pixels); in that order degrees 5 and 6 needed 128 registers a thread,
+//   16 warps an SM. From degree 5 on the header lists the steps depth
+//   first: each monomial is formed as the same parent x var, and its
+//   subtree is walked before the parent's next child, so at most min(D, 4)
+//   monomials are live a pixel and those degrees fit in 64 registers. The
+//   FMUL and FFMA counts do not change; the sums are taken in the order of
+//   formation, so results differ from the graded chain's in the last bits
+//   only.
 // - The u8 wire fused: a uint8 image is read and normalized as x / 255.0f
 //   (IEEE division), and the composite leaves as (uint8)min(max(v*255, 0),
 //   255), the floor quantize of ops/wire.py, bit for bit. The build uses no
@@ -84,27 +97,34 @@ template <int NV> struct NumCoeffs;
 template <> struct NumCoeffs<4> { static constexpr int value = kFolded; };
 template <> struct NumCoeffs<3> { static constexpr int value = kPlain; };
 
-// Step K of the chain as compile-time scalars, usable in device code.
+// Step K of the chain as compile-time scalars, usable in device code: it
+// forms monomial `target` (a graded index) as monomial `parent` times
+// variable `var`.
 template <int NV, int K> struct ChainStep;
 template <int K> struct ChainStep<4, K> {
   static constexpr int parent = kChain4[K][0];
   static constexpr int var = kChain4[K][1];
+  static constexpr int target = kTarget4[K];
 };
 template <int K> struct ChainStep<3, K> {
   static constexpr int parent = kChain3[K][0];
   static constexpr int var = kChain3[K][1];
+  static constexpr int target = kTarget3[K];
 };
 
 // One chain step for the thread's kPix pixels: one float4 broadcast, 3 * kPix
-// FFMA.
+// FFMA. `m` is indexed by graded index; the indices are compile-time, so it
+// lives in registers, and a monomial's register is free after its last
+// child is formed.
 template <int NV, int N, int K>
 __device__ __forceinline__ void chain_step(float (&m)[kPix][N], const float (&v)[kPix][NV],
                                            const float4* c, float (&a)[kPix][3]) {
-  const float4 ck = c[K + 1];
+  using S = ChainStep<NV, K>;
+  const float4 ck = c[S::target];
 #pragma unroll
   for (int p = 0; p < kPix; ++p) {
-    const float mk = m[p][ChainStep<NV, K>::parent] * v[p][ChainStep<NV, K>::var];
-    m[p][K + 1] = mk;
+    const float mk = m[p][S::parent] * v[p][S::var];
+    m[p][S::target] = mk;
     a[p][0] = fmaf(ck.x, mk, a[p][0]);
     a[p][1] = fmaf(ck.y, mk, a[p][1]);
     a[p][2] = fmaf(ck.z, mk, a[p][2]);
@@ -117,7 +137,8 @@ __device__ __forceinline__ void chain_eval_impl(const float (&v)[kPix][NV], cons
                                                 std::integer_sequence<int, K...>) {
   float m[kPix][N];
   // The constant term first, then each monomial as it is formed: the
-  // accumulation order of the reference chain.
+  // accumulation order of the reference chain in the graded order, the
+  // chain's own in the depth-first one.
   const float4 c0 = c[0];
 #pragma unroll
   for (int p = 0; p < kPix; ++p) {

@@ -17,12 +17,15 @@ wire (uint8 in and out): at least 99.9% of the values equal to the plain
 version's, none more than 1 apart.
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
 
 from curl_tpu_torch.ops import enhance, poly
 from curl_tpu_torch.ops.kernels import curve_kernel as ck
+from curl_tpu_torch.ops.kernels import poly_tables
 from curl_tpu_torch.ops.kernels import trispace_kernel as tk
 
 pytestmark = pytest.mark.cuda
@@ -195,6 +198,39 @@ def test_gradients_at_other_degrees(cuda, degree):
     for x, y in zip(a, b):
         assert float(x.grad.abs().max()) > 0
         torch.testing.assert_close(x.grad, y.grad, rtol=1e-4, atol=1e-4)
+
+
+def _spills(report: str) -> dict:
+    """(stack, spill stores, spill loads) bytes of each kernel instance in a
+    ptxas report, keyed by its mangled name."""
+    found, entry = {}, None
+    for line in report.splitlines():
+        name = re.search(r"Compiling entry function '([^']+)'", line)
+        if name:
+            entry = name.group(1)
+        sizes = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", line)
+        if sizes and entry:
+            found[entry] = tuple(map(int, sizes.groups()))
+    return found
+
+
+@pytest.mark.parametrize("degree", [5, 6])
+def test_depth_first_instances_spill_no_more_than_degree_4(cuda, degree):
+    """From degree 5 on the chain runs depth first, so at most four
+    monomials a pixel are live and the instance fits degree 4's budget of
+    64 registers (32 warps an SM; its launch shape, 2 px in blocks of 1,024
+    threads, is `poly_tables.LAUNCH`'s): every instance's stack and spills
+    are no larger than degree 4's same instance."""
+    assert poly_tables.chain_order(degree) == "depth_first"
+    pixels, threads, blocks = poly_tables.launch_shape(degree)
+    assert threads * blocks == 1024  # 65,536 registers an SM / 1,024 threads = 64
+    tk.build_library(4)
+    tk.build_library(degree)
+    base, got = _spills(tk.ptxas_report(4)), _spills(tk.ptxas_report(degree))
+    assert len(base) == 10 and got.keys() == base.keys()
+    for entry, sizes in got.items():
+        assert all(a <= b for a, b in zip(sizes, base[entry])), (entry, sizes, base[entry])
 
 
 def test_kernel_past_the_grid_limits(cuda):

@@ -7,6 +7,7 @@ checked against that plain version on the card (chip_smoke.py,
 tests/test_torch_cuda.py). Tolerance 5e-5 (docs/PARITY.md section 3).
 """
 
+import math
 import re
 
 import numpy as np
@@ -177,15 +178,76 @@ def _parse_chain(text: str, name: str):
     return pairs
 
 
+def _parse_values(text: str, name: str):
+    m = re.search(rf"constexpr int {name}\[(\d+)\] = \{{(.*?)\}};", text, re.S)
+    assert m, f"{name} not found"
+    values = tuple(int(v) for v in re.findall(r"\d+", m.group(2)))
+    assert len(values) == int(m.group(1))
+    return values
+
+
 @pytest.mark.parametrize("degree", range(1, 7))
 @pytest.mark.parametrize("name,num_vars", [("kChain4", 4), ("kChain3", 3)])
 def test_cuda_chain_tables_equal_monomial_chain(name, num_vars, degree):
     """The chain tables of the header K1 is built with at each degree:
     kChain4 is the spatial chain over (c1, c2, c3, x) once y is folded into
-    the coefficients; kChain3 the non-spatial one."""
+    the coefficients; kChain3 the non-spatial one; kTarget4 / kTarget3 the
+    monomial each step forms. Up to degree 4 they are `monomial_chain` in
+    its graded order, step K forming monomial K + 1; from degree 5 on the
+    same steps in depth-first order."""
     text = poly_tables.header(degree)
-    assert _parse_chain(text, name) == tpoly.monomial_chain(degree, num_vars)
+    chain = _parse_chain(text, name)
+    targets = _parse_values(text, name.replace("Chain", "Target"))
+    steps = tuple((p, v, t) for (p, v), t in zip(chain, targets))
+    graded = tuple((p, v, k + 1) for k, (p, v) in enumerate(tpoly.monomial_chain(degree,
+                                                                                 num_vars)))
+    if degree <= 4:
+        assert chain == tpoly.monomial_chain(degree, num_vars)
+        assert steps == graded
+    else:
+        assert steps == poly_tables.depth_first_chain(degree, num_vars)
+        assert sorted(steps, key=lambda step: step[2]) == list(graded)
     assert f"constexpr int kDegree = {degree};" in text
+
+
+def _live_peak(steps) -> int:
+    """The most monomials live at once along (parent, var, formed) steps:
+    formed (the constant from the start) and still to be read as a
+    parent by a later step."""
+    last = {}
+    for k, (parent, _, _) in enumerate(steps):
+        last[parent] = k
+    live, peak = {0}, 1
+    for k, (_, _, formed) in enumerate(steps):
+        live = {j for j in live | {formed} if last.get(j, -1) > k}
+        peak = max(peak, len(live))
+    return peak
+
+
+@pytest.mark.parametrize("num_vars", [3, 4])
+@pytest.mark.parametrize("degree", range(1, 9))
+def test_depth_first_plan(degree, num_vars):
+    """The depth-first plan forms every monomial of `monomial_powers` once,
+    each from a parent already formed, as parent times var; at most
+    min(D, V) monomials are live at once, where the graded plan keeps every
+    monomial of degree D - 1: C(D+V-2, V-1) (20 / 35 / 56 at D = 4 / 5 / 6
+    over (c1, c2, c3, x))."""
+    powers = tpoly.monomial_powers(degree, num_vars)
+    steps = poly_tables.depth_first_chain(degree, num_vars)
+    assert sorted(formed for _, _, formed in steps) == list(range(1, len(powers)))
+    seen = {0}
+    for parent, var, formed in steps:
+        assert parent in seen
+        exps = list(powers[parent])
+        exps[var] += 1
+        assert tuple(exps) == powers[formed]
+        seen.add(formed)
+    assert _live_peak(steps) <= min(degree, num_vars)
+    graded = poly_tables.chain(degree, num_vars, "graded")
+    if degree >= 2:
+        assert _live_peak(graded) == math.comb(degree + num_vars - 2, num_vars - 1)
+    if num_vars == 4 and degree in (4, 5, 6):
+        assert _live_peak(graded) == {4: 20, 5: 35, 6: 56}[degree]
 
 
 # The degree-4 chain tables as the kernel's source carried them before they

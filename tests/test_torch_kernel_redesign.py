@@ -145,6 +145,99 @@ def test_y_fold_equals_five_variable_polynomial(row0, total_h, degree):
     assert err_fold <= 1.5 * err_full
 
 
+def _steps(text: str, num_vars: int) -> tuple:
+    """(parent, var, formed) steps of a header's chain over `num_vars`
+    variables, in the header's order."""
+    chain = _table(text, f"kChain{num_vars}")
+    m = re.search(rf"constexpr int kTarget{num_vars}\[(\d+)\] = \{{(.*?)\}};", text, re.S)
+    assert m and int(m.group(1)) == len(chain)
+    return tuple((p, v, int(t)) for (p, v), t in zip(chain, re.findall(r"\d+", m.group(2))))
+
+
+def _walk(planes, coeffs: torch.Tensor, steps) -> torch.Tensor:
+    """The kernel's chain on whole planes: V (B, H, W) planes and per-row
+    coefficients (B, H, 3, N) -> (B, H, W, 3), the constant term first and
+    then each monomial's term as `steps` form it."""
+    m = {0: torch.ones_like(planes[0])}
+    acc = [coeffs[:, :, c, 0, None] * m[0] for c in range(3)]
+    for parent, var, formed in steps:
+        m[formed] = m[parent] * planes[var]
+        acc = [a + coeffs[:, :, c, formed, None] * m[formed] for c, a in enumerate(acc)]
+    return torch.stack(acc, dim=-1)
+
+
+def _kernel_poly(planes: torch.Tensor, cf: torch.Tensor, degree: int, spatial: bool, steps,
+                 row0: int = 0, total_h=None) -> torch.Tensor:
+    """K1's polynomial of (B, H, W, 3) planes as the kernel evaluates it:
+    the spatial instance folds y into (B, H, 3, C(D+4, 4)) coefficients per
+    row and walks kChain4 over (c1, c2, c3, x); the other walks kChain3."""
+    b, h, w, _ = planes.shape
+    vars_ = [planes[..., i] for i in range(3)]
+    if not spatial:
+        return _walk(vars_, cf[:, None].expand(b, h, -1, -1), steps)
+    xy = coords.coord_channels(b, h, w, planes.dtype, row_offset=row0,
+                               total_height=total_h or h, total_width=w)
+    return _walk(vars_ + [xy[..., 0]], _fold_y(cf, xy[0, :, 0, 1], degree), steps)
+
+
+@pytest.mark.parametrize("spatial", [True, False], ids=["spatial", "non_spatial"])
+@pytest.mark.parametrize("degree", [5, 6])
+def test_depth_first_evaluation_equals_the_polynomial(degree, spatial):
+    """From degree 5 on K1 walks its chain depth first. Walking the
+    header's parsed tables in their order (after the y-fold when spatial)
+    equals the polynomial to 1e-12 in float64; in float32 it lies no
+    further from the float64 value (the L2 distance over all outputs) than
+    1.5 times the graded chain does; and a tri-space residual built on it
+    is within docs/PARITY.md's 5e-5 of `curl_tpu`'s XLA residual. The
+    distance is L2 because the largest single error is one pixel's
+    rounding: across seeds it swings 0.9-2.2x between the two orders at an
+    equal L2 distance (0.95-1.2x)."""
+    jax = pytest.importorskip("jax")
+    import jax.numpy as jnp
+
+    from curl_tpu.ops import enhance as jenhance
+
+    assert poly_tables.chain_order(degree) == "depth_first"
+    num_vars = 4 if spatial else 3
+    steps = _steps(poly_tables.header(degree), num_vars)
+    graded = poly_tables.chain(degree, num_vars, "graded")
+    rng = np.random.default_rng(degree + 10 * spatial)
+    b, h, w, row0, total_h = 2, 7, 33, 5, 40
+    planes = torch.from_numpy(rng.uniform(0, 1, (b, h, w, 3)))
+    cf = torch.from_numpy(rng.normal(scale=0.3, size=(b, 3, poly.num_monomials(
+        degree, num_vars + int(spatial)))))
+    extra = coords.coord_channels(b, h, w, torch.float64, row_offset=row0, total_height=total_h,
+                                  total_width=w) if spatial else planes[..., :0]
+    truth = poly.poly_apply(torch.cat([planes, extra], dim=-1), cf, degree=degree)
+    kw = dict(degree=degree, spatial=spatial, row0=row0, total_h=total_h)
+    torch.testing.assert_close(_kernel_poly(planes, cf, steps=steps, **kw), truth, atol=1e-12,
+                               rtol=0)
+    p32, c32 = planes.float(), cf.float()
+    err_df = _kernel_poly(p32, c32, steps=steps, **kw).double() - truth
+    err_graded = _kernel_poly(p32, c32, steps=graded, **kw).double() - truth
+    print(f"fp32 vs float64: graded {float(err_graded.norm()):.3e} "
+          f"(max {float(err_graded.abs().max()):.3e}), depth-first {float(err_df.norm()):.3e} "
+          f"(max {float(err_df.abs().max()):.3e}), max |out| {float(truth.abs().max()):.3f}")
+    assert err_df.norm() <= 1.5 * err_graded.norm()
+
+    img = rng.uniform(0, 1, (b, 12, 20, 3)).astype(np.float32)
+    cs = [rng.normal(scale=0.2, size=(b, 3, cf.shape[-1])).astype(np.float32)
+          for _ in range(3)]
+    rgb = [torch.from_numpy(img[..., i]) for i in range(3)]
+    res = torch.zeros(img.shape, dtype=torch.float32)
+    for space, c in enumerate(cs):
+        x = rgb if space == 0 else (cp.lab_from_rgb if space == 1 else cp.hsv_from_rgb)(*rgb)
+        o = torch.sigmoid(_kernel_poly(torch.stack(list(x), dim=-1), torch.from_numpy(c),
+                                       degree, spatial, steps)).unbind(-1)
+        if space:
+            o = (cp.rgb_from_lab if space == 1 else cp.rgb_from_hsv)(*o)
+        res = res + 2.0 * (torch.stack(list(o), dim=-1) - 0.5)
+    with jax.disable_jit():
+        expect = jenhance.trispace_residual(jnp.asarray(img), *map(jnp.asarray, cs),
+                                            degree=degree, spatial=spatial, impl="xla")
+    np.testing.assert_allclose(res.numpy(), np.asarray(expect), atol=5e-5, rtol=0)
+
+
 def _ramp_sum(p: torch.Tensor, c0: torch.Tensor, slopes: torch.Tensor) -> torch.Tensor:
     """The first K2's curve: c0 + sum_j s_j * clip(n*p - j, 0, 1), summed
     from c0 in j order."""
@@ -288,11 +381,18 @@ def test_probe_rewrites_the_built_k1_constants(degree):
              for m in kernel_probe._K1_CONSTANTS.finditer(text)}
     built = poly_tables.launch_shape(degree)
     assert found == dict(zip(("kPix", "kThreads", "kMinBlocks"), built))
-    if degree == 4:
-        assert built == (2, 512, 2)
+    # 64 registers, 32 warps an SM at every degree since the chain runs
+    # depth first from degree 5 on; blocks of 1,024 threads from there.
+    assert built == ((2, 512, 2) if degree == 4 else (2, 1024, 1))
     variants = kernel_probe.K1_VARIANTS[degree]
     assert variants and built not in variants
     assert "kPix = 3" in kernel_probe.k1_variant_header(degree, 3, 128, 1)
+    # The probe's other chain order: the same constants, the other steps.
+    other = kernel_probe.other_order(degree)
+    assert {other, poly_tables.chain_order(degree)} == {"graded", "depth_first"}
+    text = kernel_probe.k1_variant_header(degree, *built, order=other)
+    assert _steps(text, 4) == poly_tables.chain(degree, 4, other)
+    assert _steps(text, 4) != _steps(poly_tables.header(degree), 4)
 
 
 @pytest.mark.parametrize("family", ["polynomial", "curve"])
