@@ -17,10 +17,11 @@
 // (img 12, out 12), 398 MB or 0.119 ms at 1080p batch 8 on 3.35 TB/s, 12 B/px
 // with bf16 storage and 6 B/px on the u8 wire; with the O(1) lookup it does
 // some 360 fp32 operations per pixel (0.089 ms). In practice it is bound by
-// instruction issue: the 12 IEEE powf of the Lab round trip are a few dozen
-// instructions each, and with ~20 IEEE divisions by constants they are most
-// of what a pixel issues. A 15-ramp sum per curve (about 600 instructions a
-// pixel) took the same time in bf16 as in fp32.
+// instruction issue: under the Ieee color math (color_planes.cuh) the 12
+// IEEE powf of the Lab round trip are a few dozen instructions each, and
+// with ~20 IEEE divisions by constants they are most of what a pixel issues
+// (the ten O(1) lookups are ~150 of its ~1,960). A 15-ramp sum per curve
+// (about 600 instructions a pixel) took the same time in bf16 as in fp32.
 //
 // What this design does about it:
 // - O(1) knot lookup. The block's prologue builds, one thread per curve, the
@@ -36,10 +37,16 @@
 //   data-dependent reads hit 32 distinct banks or broadcast.
 // - No materialized mask. The HAS_MASK = false instance reads no mask and
 //   multiplies by nothing, which is bitwise the same as an all-ones mask.
-// - The u8 wire fused: a uint8 image is read as x / 255.0f (IEEE division),
-//   a uint8 mask as its value, and the output leaves as
-//   (uint8)min(max(v*255, 0), 255), the floor quantize of ops/wire.py, bit
-//   for bit. The build uses no fast math.
+// - The color math's policy by instance: the 16-knot default keeps
+//   curl_planes::Ieee, bitwise the redesign that tuned it; the
+//   runtime-count instance runs curl_planes::Lean, whose constant divisions
+//   are corrected-reciprocal products (bitwise IEEE), whose sRGB powers run
+//   on the special-function unit, and whose cube and cube root are t*t*t and
+//   cbrtf: a fraction of the Ieee instructions a pixel.
+// - The u8 wire fused: a uint8 image is read as x / 255 (the policy's
+//   division, bitwise IEEE's under both), a uint8 mask as its value, and
+//   the output leaves as (uint8)min(max(v*255, 0), 255), the floor quantize
+//   of ops/wire.py, bit for bit. The build uses no fast math.
 //
 // Knot counts: the (16, 16, 16) default (the 48/48/64 split of CurlCurveNet)
 // is a template instance with compile-time segment counts. Any other
@@ -61,6 +68,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "color_planes.cuh"
 
@@ -71,11 +79,20 @@ constexpr int kCurves = 10;
 constexpr int kMaxGridY = 65535;
 constexpr int kStaticSharedBytes = 48 * 1024;  // above this only by opt-in
 
-// Storage <-> fp32. uint8 is the u8 wire: an image is x / 255 in and
-// floor-quantized out; a mask is its value.
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_float(uint8_t x) { return static_cast<float>(x) / 255.0f; }
+// The color math of each instance (color_planes.cuh): the 16-knot default
+// keeps Ieee; the runtime-count instance runs Lean.
+using FixedMath = curl_planes::Ieee;
+using RuntimeMath = curl_planes::Lean;
+
+// Storage <-> fp32 under policy P. uint8 is the u8 wire: an image is x / 255
+// in and floor-quantized out; a mask is its value.
+template <class P> __device__ __forceinline__ float to_float(float x) { return x; }
+template <class P> __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <class P> __device__ __forceinline__ float to_float(uint8_t x) {
+  return curl_planes::div<P, curl_planes::By255>(static_cast<float>(x));
+}
 __device__ __forceinline__ float mask_value(float x) { return x; }
 __device__ __forceinline__ float mask_value(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float mask_value(uint8_t x) { return static_cast<float>(x); }
@@ -118,36 +135,36 @@ __device__ __forceinline__ void apply_mask(float (&pl)[3], float m) {
   }
 }
 
-// One pixel: the ten curves, the residual and the composite. t holds the
-// ten prefix tables, `stride` entries apart.
-template <typename T, bool HAS_MASK, int NL, int NR, int NH>
+// One pixel under the color math P: the ten curves, the residual and the
+// composite. t holds the ten prefix tables, `stride` entries apart.
+template <typename T, bool HAS_MASK, int NL, int NR, int NH, class P>
 __device__ __forceinline__ void enhance_pixel(const T* __restrict__ img,
                                               const T* __restrict__ mask, T* __restrict__ out,
                                               long long px, const float2* t, int stride,
                                               int n_lab, int n_rgb, int n_hsv) {
   const long long off = px * 3;
-  const float r = to_float(img[off]);
-  const float g = to_float(img[off + 1]);
-  const float b = to_float(img[off + 2]);
+  const float r = to_float<P>(img[off]);
+  const float g = to_float<P>(img[off + 1]);
+  const float b = to_float<P>(img[off + 2]);
   const float m = HAS_MASK ? mask_value(mask[px]) : 1.0f;
   float pl[3];
 
   // Lab curves.
-  curl_planes::lab_from_rgb(r, g, b, pl[0], pl[1], pl[2]);
+  curl_planes::lab_from_rgb<P>(r, g, b, pl[0], pl[1], pl[2]);
   apply_curve<NL, 0, 0>(pl, t + 0 * stride, n_lab);
   apply_curve<NL, 1, 1>(pl, t + 1 * stride, n_lab);
   apply_curve<NL, 2, 2>(pl, t + 2 * stride, n_lab);
   apply_mask<HAS_MASK>(pl, m);
 
   // RGB curves.
-  curl_planes::rgb_from_lab(pl[0], pl[1], pl[2], pl[0], pl[1], pl[2]);
+  curl_planes::rgb_from_lab<P>(pl[0], pl[1], pl[2], pl[0], pl[1], pl[2]);
   apply_curve<NR, 0, 0>(pl, t + 3 * stride, n_rgb);
   apply_curve<NR, 1, 1>(pl, t + 4 * stride, n_rgb);
   apply_curve<NR, 2, 2>(pl, t + 5 * stride, n_rgb);
   apply_mask<HAS_MASK>(pl, m);
 
   // HSV curves: H->H, H->S, S->S, V->V.
-  curl_planes::hsv_from_rgb(pl[0], pl[1], pl[2], pl[0], pl[1], pl[2]);
+  curl_planes::hsv_from_rgb<P>(pl[0], pl[1], pl[2], pl[0], pl[1], pl[2]);
   apply_curve<NH, 0, 0>(pl, t + 6 * stride, n_hsv);
   apply_curve<NH, 0, 1>(pl, t + 7 * stride, n_hsv);
   apply_curve<NH, 1, 1>(pl, t + 8 * stride, n_hsv);
@@ -156,7 +173,7 @@ __device__ __forceinline__ void enhance_pixel(const T* __restrict__ img,
 
   // Residual and composite.
   float res[3];
-  curl_planes::rgb_from_hsv(pl[0], pl[1], pl[2], res[0], res[1], res[2]);
+  curl_planes::rgb_from_hsv<P>(pl[0], pl[1], pl[2], res[0], res[1], res[2]);
   const float in[3] = {r, g, b};
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
@@ -227,13 +244,14 @@ curve_enhance_kernel(const T* __restrict__ img, const T* __restrict__ mask,
   constexpr int NL = kFixed ? KL - 1 : 0;
   constexpr int NR = kFixed ? KR - 1 : 0;
   constexpr int NH = kFixed ? KH - 1 : 0;
+  using Math = std::conditional_t<kFixed, FixedMath, RuntimeMath>;
   const int n_chunks = kFixed ? 1 : chunks;
   const long long first = static_cast<long long>(blockIdx.x) * kThreads * n_chunks + threadIdx.x;
   for (int c = 0; c < n_chunks; ++c) {
     const long long p = first + static_cast<long long>(c) * kThreads;
     if (p >= pixels) return;
-    enhance_pixel<T, HAS_MASK, NL, NR, NH>(img, mask, out, image * pixels + p, s_tab, stride,
-                                           n_lab, n_rgb, n_hsv);
+    enhance_pixel<T, HAS_MASK, NL, NR, NH, Math>(img, mask, out, image * pixels + p, s_tab,
+                                                 stride, n_lab, n_rgb, n_hsv);
   }
 }
 

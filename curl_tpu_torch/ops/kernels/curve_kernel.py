@@ -10,7 +10,9 @@ its kernel's backward through XLA.
 Any knot count K >= 2 a group runs the kernel: the 16-knot default
 (48/48/64) in an instance of its own, any other counts in the runtime-count
 instance, whose prefix tables take 10 x S x 12 B of shared memory for the
-longest curve's S = K - 1 segments.
+longest curve's S = K - 1 segments. The two instances differ in their color
+math (`math_policy`, `csrc/color_planes.cuh`): the default keeps the IEEE
+powers and divisions, the runtime-count instance runs the lean ones.
 
 `mask=None` means all ones: the kernel then reads no mask and multiplies by
 nothing, which is bitwise the same result. A uint8 image is the u8 wire: the
@@ -26,6 +28,10 @@ captures it like any other op.
 `LAUNCHES` counts kernel launches in the op's real implementation
 (plain-version calls are not counted), so a run can show that its main path
 went through the kernel.
+
+`prepare_knots` and `launch_prepared` are the op's two steps, the host
+knot preparation and the bare launch, for timing the kernel apart from the
+host work around it.
 """
 
 from __future__ import annotations
@@ -117,6 +123,12 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+def math_policy(counts) -> str:
+    """The color math of the instance that runs knot counts (k_lab, k_rgb,
+    k_hsv): "ieee" at the 16-knot default, "lean" at any other counts."""
+    return "ieee" if tuple(counts) == (16, 16, 16) else "lean"
+
+
 def block_chunks(seg: int) -> int:
     """Runs of 256 pixels a block of the runtime-count instance covers at S
     = `seg` segments a curve: ceil(S / 16), so the serial prefix sums of its
@@ -126,7 +138,6 @@ def block_chunks(seg: int) -> int:
 
 def _launch(img: Tensor, mask: Optional[Tensor], knots_lab: Tensor, knots_rgb: Tensor,
             knots_hsv: Tensor) -> Tensor:
-    global LAUNCHES
     if img.device.type != "cuda":
         raise ValueError(f"the curve kernel runs on CUDA tensors; got {img.device}")
     if img.dtype not in _DTYPES:
@@ -142,18 +153,28 @@ def _launch(img: Tensor, mask: Optional[Tensor], knots_lab: Tensor, knots_rgb: T
     if b == 0:
         raise ValueError("batch must be at least 1")
     slopes, c0 = prepare_knots(knots_lab.float(), knots_rgb.float(), knots_hsv.float())
-    slopes, c0 = slopes.contiguous(), c0.contiguous()
-    out = torch.empty_like(img)
     if h * w == 0:
-        return out
+        return torch.empty_like(img)
+    counts = (knots_lab.shape[-1], knots_rgb.shape[-1], knots_hsv.shape[-1])
+    return launch_prepared(img, mask, slopes.contiguous(), c0.contiguous(), counts)
 
+
+def launch_prepared(img: Tensor, mask: Optional[Tensor], slopes: Tensor, c0: Tensor,
+                    counts: tuple[int, int, int], chunks: Optional[int] = None) -> Tensor:
+    """One launch of K2 on a non-empty image and contiguous
+    `prepare_knots` output for knot `counts`, `chunks` runs of 256 pixels a
+    block (`block_chunks` by default): the op's launch without its checks
+    and knot preparation. Counts in `LAUNCHES`."""
+    global LAUNCHES
+    b, h, w, _ = img.shape
+    out = torch.empty_like(img)
     lib = _library()
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream(img.device).cuda_stream
         rc = lib.curl_curve_enhance(
             img.data_ptr(), None if mask is None else mask.data_ptr(), slopes.data_ptr(),
-            c0.data_ptr(), out.data_ptr(), b, h * w, knots_lab.shape[-1],
-            knots_rgb.shape[-1], knots_hsv.shape[-1], block_chunks(slopes.shape[-1]),
+            c0.data_ptr(), out.data_ptr(), b, h * w, *counts,
+            block_chunks(slopes.shape[-1]) if chunks is None else chunks,
             _DTYPES[img.dtype], stream,
         )
     if rc != 0:

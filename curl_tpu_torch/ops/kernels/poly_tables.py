@@ -14,7 +14,9 @@ that header's text for one polynomial degree D >= 1:
 - the counts `kSpatialRaw` = C(D+5, 5) (coefficients a channel, spatial),
   `kFolded` = C(D+4, 4) (after the y-fold) and `kPlain` = C(D+3, 3)
   (non-spatial);
-- the launch shape `kPix`, `kThreads` and `kMinBlocks` of `LAUNCH`.
+- the launch shape `kPix`, `kThreads` and `kMinBlocks` of `LAUNCH`;
+- `Math`, the color math's policy of `csrc/color_planes.cuh` that `MATH`
+  names for the degree (`curl_planes::Lean` or `curl_planes::Ieee`).
 
 `build.py` writes the header beside the library it builds, so each degree
 has a library of its own (`libtrispace_kernel_d<D>-<hash>.so`) and the
@@ -32,11 +34,14 @@ HEADER = "trispace_tables.h"
 # (pixels per thread, threads per block, blocks per SM that
 # `__launch_bounds__` sizes registers for) by degree, the fastest of
 # `tools/kernel_probe.py`'s one-time sweeps on the card in fp32 and u8 both
-# (PERF.md). Both shapes hold the kernel to 64 registers, 32 warps an SM;
-# from degree 5 on, a block of 1,024 threads pays the prologue (staging and
-# folding 3 x C(D+5, 5) coefficients) once per 2,048 pixels. A degree not
-# listed takes the shape of the nearest one listed below it.
-LAUNCH = {1: (2, 512, 2), 5: (2, 1024, 1)}
+# (PERF.md). Every shape holds the kernel to 64 registers, 32 warps an SM.
+# At degrees 1 and 2, whose chain and color math (lean, MATH) are short,
+# four pixels a thread share each coefficient broadcast and the block's
+# prologue over 2,048 pixels; from degree 5 on, a block of 1,024 threads
+# pays the prologue (staging and folding 3 x C(D+5, 5) coefficients) once
+# per 2,048 pixels. A degree not listed takes the shape of the nearest one
+# listed below it.
+LAUNCH = {1: (4, 512, 2), 3: (2, 512, 2), 5: (2, 1024, 1)}
 
 # The order of the chain's steps by degree, looked up as LAUNCH is.
 # "graded" is `poly.monomial_chain`'s: every monomial of degree D - 1 stays
@@ -48,6 +53,15 @@ LAUNCH = {1: (2, 512, 2), 5: (2, 1024, 1)}
 # degrees 5 and 6 fit in 64 registers. Degrees 1-4 keep the graded order
 # they were tuned and checked bitwise with.
 ORDER = {1: "graded", 5: "depth_first"}
+
+# The color math's policy by degree, looked up as LAUNCH is: "lean"
+# (`curl_planes::Lean`: corrected-reciprocal constant divisions, the sRGB
+# powers on the special-function unit, t*t*t, cbrtf) or "ieee" (IEEE powf
+# and divisions). Degrees 1-3, whose short chains leave the color math most
+# of the kernel's time, run lean; from degree 4 on the instances keep the
+# IEEE math they were redesigned and checked bitwise with.
+MATH = {1: "lean", 4: "ieee"}
+_POLICIES = {"lean": "curl_planes::Lean", "ieee": "curl_planes::Ieee"}
 
 
 def _at(table: dict, degree: int):
@@ -63,6 +77,11 @@ def chain_order(degree: int) -> str:
     """The order of `degree`'s chain in the kernel: "graded" or
     "depth_first"."""
     return _at(ORDER, degree)
+
+
+def math_policy(degree: int) -> str:
+    """The color math's policy of `degree`'s instance: "lean" or "ieee"."""
+    return _at(MATH, degree)
 
 
 def depth_first_chain(degree: int, num_vars: int) -> tuple[tuple[int, int, int], ...]:
@@ -123,14 +142,17 @@ def _values(values, per_line: int = 20) -> str:
 
 def header(degree: int) -> str:
     """The text of `trispace_tables.h` for `degree`."""
-    return render(degree, chain_order(degree))
+    return render(degree, chain_order(degree), math_policy(degree))
 
 
-def render(degree: int, order: str) -> str:
-    """`header(degree)` with its chains in `order`: the kernel is built
-    with `header`; another order is only `tools/kernel_probe.py`'s."""
+def render(degree: int, order: str, policy: str) -> str:
+    """`header(degree)` with its chains in `order` and the color math
+    `policy` ("lean" or "ieee"): the kernel is built with `header`; another order or policy is
+    only `tools/kernel_probe.py`'s."""
     if degree < 1:
         raise ValueError(f"K1 is built for polynomial degrees >= 1; got {degree}")
+    if policy not in _POLICIES:
+        raise ValueError(f"unknown color math {policy!r}")
     pix, threads, min_blocks = launch_shape(degree)
     chain4, chain3 = chain(degree, 4, order), chain(degree, 3, order)
     fold = fold_map(degree)
@@ -140,7 +162,11 @@ def render(degree: int, order: str) -> str:
 
 #include <cstdint>
 
+#include "color_planes.cuh"
+
 constexpr int kDegree = {degree};
+// The color math's policy (poly_tables.MATH): {policy}.
+using Math = {_POLICIES[policy]};
 constexpr int kThreads = {threads};
 constexpr int kPix = {pix};          // pixels per thread
 constexpr int kMinBlocks = {min_blocks};    // blocks per SM that __launch_bounds__ sizes registers for

@@ -25,6 +25,10 @@ symbolic under export.
 `LAUNCHES` counts kernel launches in the op's real implementation
 (plain-version calls are not counted), so a run can show that its main path
 went through the kernel.
+
+`pack_coefficients` and `launch_packed` are the op's two steps, the host
+packing and the bare launch, for timing the kernel apart from the host work
+around it.
 """
 
 from __future__ import annotations
@@ -185,7 +189,6 @@ def _launch(
     total_w: int,
     composite: bool,
 ) -> Tensor:
-    global LAUNCHES
     if img.device.type != "cuda":
         raise ValueError(f"the trispace kernel runs on CUDA tensors; got {img.device}")
     if img.dtype not in _DTYPES:
@@ -208,14 +211,27 @@ def _launch(
     if degree < 1:
         raise ValueError("the CUDA kernel is built for polynomial degrees >= 1; degree 0 (a "
                          "constant a channel) runs the plain version on the CPU only")
-    # (B, space, N, 4): each monomial's three channel coefficients as one
-    # float4, the 4th lane zero.
-    packed = torch.stack([coeff_rgb, coeff_lab, coeff_hsv], dim=1).float()
-    packed = F.pad(packed.transpose(2, 3), (0, 1)).contiguous()
-    out = torch.empty_like(img)
+    packed = pack_coefficients(coeff_rgb, coeff_lab, coeff_hsv)
     if h * w == 0:
-        return out
+        return torch.empty_like(img)
+    return launch_packed(img, packed, degree, row0, spatial, total_h, total_w, composite)
 
+
+def pack_coefficients(coeff_rgb: Tensor, coeff_lab: Tensor, coeff_hsv: Tensor) -> Tensor:
+    """The kernel's (B, space, N, 4) coefficients: each monomial's three
+    channel coefficients as one float4, the 4th lane zero."""
+    packed = torch.stack([coeff_rgb, coeff_lab, coeff_hsv], dim=1).float()
+    return F.pad(packed.transpose(2, 3), (0, 1)).contiguous()
+
+
+def launch_packed(img: Tensor, packed: Tensor, degree: int, row0: int, spatial: bool,
+                  total_h: int, total_w: int, composite: bool) -> Tensor:
+    """One launch of K1's `degree` library on a non-empty image and
+    `pack_coefficients`' output: the op's launch without its checks and
+    packing. Counts in `LAUNCHES`."""
+    global LAUNCHES
+    b, h, w, _ = img.shape
+    out = torch.empty_like(img)
     lib = _library(degree)
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream(img.device).cuda_stream

@@ -24,8 +24,8 @@ import pytest
 import torch
 
 from curl_tpu_torch.ops import enhance, poly
+from curl_tpu_torch.ops.kernels import color_math, poly_tables
 from curl_tpu_torch.ops.kernels import curve_kernel as ck
-from curl_tpu_torch.ops.kernels import poly_tables
 from curl_tpu_torch.ops.kernels import trispace_kernel as tk
 
 pytestmark = pytest.mark.cuda
@@ -165,10 +165,12 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
 @pytest.mark.parametrize("degree", [1, 2, 3, 5, 6, 7])
 def test_kernel_matches_plain_at_every_degree(cuda, degree, spatial):
     """K1 built for another degree (its own library), residual and
-    composite on a ragged 17x23 and a band of a taller image, and the u8
-    wire, against the plain version at that degree. Degree 7's spatial
+    composite on a ragged 17x23 and a band of a taller image, bf16 and the
+    u8 wire, against the plain version at that degree: degrees 1-3 under the
+    lean color math, 5 and up under the IEEE one. Degree 7's spatial
     instance stages 53,856 B of coefficients: past the 48 KB a kernel gets
     without opting in."""
+    assert poly_tables.math_policy(degree) == ("lean" if degree <= 3 else "ieee")
     n = poly.num_monomials(degree, 3 + 2 * int(spatial))
     img, cs = _inputs(30 + degree, 2, 17, 23, n)
     kw = dict(degree=degree, spatial=spatial)
@@ -179,9 +181,37 @@ def test_kernel_matches_plain_at_every_degree(cuda, degree, spatial):
         assert tk.LAUNCHES == before + 1
         err = float((got - _plain(img, cs, **kw, **extra)).abs().max())
         assert err <= 2e-4, (extra, err)
+    img16 = img.bfloat16()
+    err = (tk.fused_trispace_residual(img16, *cs, composite=True, **kw).float()
+           - _plain(img16, cs, composite=True, **kw).float()).abs()
+    assert float(torch.quantile(err.flatten(), 0.999)) <= 1e-2
     img8 = (img * 255).to(torch.uint8)
     _u8_close(tk.fused_trispace_residual(img8, *cs, composite=True, **kw),
               _plain(img8, cs, composite=True, **kw))
+
+
+@pytest.mark.parametrize("degree", [1, 2, 3])
+def test_lean_band_equals_whole_slice(cuda, degree):
+    """The lean color math computes each pixel alone, the special-function
+    unit's results included: a band is bitwise the whole image's rows."""
+    img, cs = _inputs(70 + degree, 2, 64, 48, poly.num_monomials(degree, 5))
+    whole = tk.fused_trispace_residual(img, *cs, degree=degree, composite=True)
+    band = tk.fused_trispace_residual(img[:, 16:48].contiguous(), *cs, degree=degree,
+                                      tile=(16, 0, 64, 48), composite=True)
+    assert torch.equal(band, whole[:, 16:48])
+
+
+@pytest.mark.parametrize("name", sorted(color_math.checks()))
+def test_color_math_primitive_within_its_record(cuda, name):
+    """Each primitive of the lean color math on every float32 of its
+    domain: within its recorded bound in ulps of float64, and bitwise the
+    IEEE form where it is recorded so (every constant division wherever the
+    quotient is normal, recip, sigmoid)."""
+    r = color_math.check(name)
+    assert r["count"] > 0
+    assert r["lean_ulp"] <= r["bound_ulp"], r
+    if r["bitwise"]:
+        assert r["differ"] == 0, r
 
 
 @pytest.mark.parametrize("degree", [3, 5])
@@ -328,16 +358,19 @@ def test_curve_u8_wire_matches_plain(cuda, counts, masked):
 
 
 @pytest.mark.parametrize("counts", [(66, 66, 66), (96, 96, 96), (257, 257, 257), (2, 96, 257),
-                                    (513, 2, 2)], ids=["66", "96", "257", "mixed", "513"])
+                                    (513, 2, 2), (8, 12, 20)],
+                         ids=["66", "96", "257", "mixed", "513", "8_12_20"])
 def test_curve_kernel_at_many_knots(cuda, counts):
-    """Knot counts past the first design's 65: the runtime-count instance
-    with its tables in dynamic shared memory (61,480 B at 513 knots, past
-    the 48 KB a kernel gets without opting in) and several runs of 256
-    pixels a block, with and without a mask, fp32, bf16 and the u8 wire. Knot logits
+    """Knot counts other than the default: the runtime-count instance,
+    under the lean color math, with its tables in dynamic shared memory
+    (61,480 B at 513 knots, past the 48 KB a kernel gets without opting in)
+    and several runs of 256 pixels a block past 17 knots, with and without
+    a mask, fp32, bf16 and the u8 wire. Knot logits
     of std 0.05 * 15 / n_seg keep the curves as steep as 16 knots at 0.05:
     iid knots at 0.05 make a 257-knot curve 17x as steep, and the ten chained
     curves then part fp32 from float64 in the plain version itself by up to
     6e-2 (tests/test_torch_poly_degrees.py)."""
+    assert ck.math_policy(counts) == "lean"
     img, mask, *knots = _curve_inputs(60, 2, 57, 71, counts, std=0.05 * 15 / (max(counts) - 1))
     for m in (mask, None):
         before = ck.LAUNCHES

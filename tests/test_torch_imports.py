@@ -37,6 +37,7 @@ MODULES = [
     "curl_tpu_torch.ops.kernels",
     "curl_tpu_torch.ops.kernels.build",
     "curl_tpu_torch.ops.kernels.clip_kernel",
+    "curl_tpu_torch.ops.kernels.color_math",
     "curl_tpu_torch.ops.kernels.curve_kernel",
     "curl_tpu_torch.ops.kernels.poly_tables",
     "curl_tpu_torch.ops.kernels.trispace_kernel",
@@ -61,6 +62,7 @@ MODULES = [
     "curl_tpu_torch.tools",
     "curl_tpu_torch.tools.kernel_probe",
     "curl_tpu_torch.tools.train_profile",
+    "curl_tpu_torch.tools.wrapper_times",
     "curl_tpu_torch.train",
     "curl_tpu_torch.train.checkpoint",
     "curl_tpu_torch.train.loop",
