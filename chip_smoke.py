@@ -12,8 +12,7 @@ Phases, each of which fails the run:
      library a degree, its tables generated by ops/kernels/poly_tables.py),
      one nvcc each, all started together; print each build's time, the
      registers, stack and spills ptxas reports for every instance of each K1
-     library and of K2, each beside its color math policy (lean for K1 at
-     degrees 1-3 and K2's runtime-count instance, ieee for the others).
+     library and of K2.
   2. K1 against its plain version on the card: 1080p batch 8 fp32 (residual
      and composite), a 1080p row band at row0 = 540 (the y-fold) against the
      plain version and the whole-image slice, odd 17x23, a small row band,
@@ -177,22 +176,22 @@ Phases, each of which fails the run:
          knots: with and without a mask, std 0.2, mask=None bitwise,
          bf16, the u8 wire, odd 17x23.
      (f) Times from CUDA events at 1080p batch 8: K1 at degrees 1-6, fp32
-         and u8 composite, beside each degree's color math policy, bound,
-         build time and ptxas registers and spills; K2 at 16, 96 and 257
-         knots, and at 96 and 257 with one run of 256 pixels a block (the
-         prologue's cost), beside each instance's policy. Each through the
-         wrapper (`k1_ms_by_degree`, `k2_ms_by_knots`, ...), as a model's
-         call pays it, and as a bare launch on packed coefficients or
-         prepared knots (`k1_bare_ms_by_degree`, `k2_bare_ms_by_knots`,
-         ...), the kernel alone.
+         and u8 composite, beside each degree's bound, build time and ptxas
+         registers and spills; K2 at 16, 96 and 257 knots, and at 96 and
+         257 with one run of 256 pixels a block (the prologue's cost). Each
+         through the wrapper (`k1_ms_by_degree`, `k2_ms_by_knots`, ...), as
+         a model's call pays it, and as a bare launch on packed
+         coefficients or the knot stacks (`k1_bare_ms_by_degree`,
+         `k2_bare_ms_by_knots`, ...), the kernel alone; K2's wrapper less
+         its bare launch (`k2_wrapper_gap_ms_by_knots`).
 
 The kernels' record carries, besides each kernel's main-path launches and
 times, the launches of phases 12 and 13 and the backbone + head replay times
 at fp32 and bf16 (`fp32_backbone_ms`, `bf16_backbone_ms`), and phase 14's
 times at 512x512 batch 8 (`ms_512`, `plain_acc_ms_512`, `plain_matmul_ms_512`),
 and phase 15's numbers by degree and by knot count (`k1_ms_by_degree`,
-`k1_bare_ms_by_degree`, `k1_bound_ms_by_degree`, `k1_math_by_degree`,
-`k2_ms_by_knots`, `k2_bare_ms_by_knots`, ...).
+`k1_bare_ms_by_degree`, `k1_bound_ms_by_degree`, `k2_ms_by_knots`,
+`k2_bare_ms_by_knots`, `k2_wrapper_gap_ms_by_knots`, ...).
 The last two lines
 before the final one are the kernels' JSON record and the card's
 `name, power.limit`; the final line is
@@ -2141,7 +2140,6 @@ def other_degrees_and_knots(torch, dev, rng, counters, train_counters, batch, ca
     from curl_tpu_torch.models.curl_curve import CurlCurveNet
     from curl_tpu_torch.models.trispace import TriSpacePolyNet
     from curl_tpu_torch.ops import poly, wire
-    from curl_tpu_torch.ops.kernels import poly_tables
     from curl_tpu_torch.tools import kernel_probe
 
     tk, ck = counters["K1"], counters["K2"]
@@ -2213,10 +2211,10 @@ def other_degrees_and_knots(torch, dev, rng, counters, train_counters, batch, ca
     img = image(rng, BATCH, HEIGHT, WIDTH, dev)
     img8 = (img * 255).to(torch.uint8)
     out["k1_ms"], out["k1_ms_u8"], out["k1_bound_ms"], out["k1_plain_ms"] = {}, {}, {}, {}
-    out["k1_bare_ms"], out["k1_bare_ms_u8"], out["k1_math"], out["k2_math"] = {}, {}, {}, {}
+    out["k1_bare_ms"], out["k1_bare_ms_u8"] = {}, {}
     # Through the wrapper, as a model's call pays it, and bare: the kernel
-    # alone, without the wrapper's host work (packing, the op's dispatch,
-    # K2's knot preparation), which comes near a lean instance's launch.
+    # alone, without the wrapper's host work (checks, K1's packing, the op's
+    # dispatch), which comes near a short launch.
     for degree in sorted(OTHER_DEGREES + (4,)):
         cs = coefficients(rng, BATCH, poly.num_monomials(degree, 5), dev)
         fp32_ms = cuda_ms(lambda: tk.fused_trispace_residual(img, *cs, degree=degree,
@@ -2232,9 +2230,8 @@ def other_degrees_and_knots(torch, dev, rng, counters, train_counters, batch, ca
             img, *cs, degree=degree, composite=True), 2, warmup=1)
         bound, _ = k1_bound_ms(degree, pixels)
         out["k1_ms"][degree], out["k1_ms_u8"][degree] = fp32_ms, u8_ms
-        out["k1_math"][degree] = poly_tables.math_policy(degree)
         out["k1_bound_ms"][degree], out["k1_plain_ms"][degree] = bound, plain_ms
-        log(f"  K1 degree {degree} ({poly_tables.math_policy(degree)} color math): fp32 "
+        log(f"  K1 degree {degree}: fp32 "
             f"{fp32_ms:.3f} ms, u8 {u8_ms:.3f} ms (bare {bare[img.dtype]:.3f}, "
             f"{bare[img8.dtype]:.3f}); plain version "
             f"{plain_ms:.3f} ms; bound {bound:.3f} ms ({100 * bound / fp32_ms:.1f}% of fp32); build "
@@ -2242,7 +2239,7 @@ def other_degrees_and_knots(torch, dev, rng, counters, train_counters, batch, ca
             f"{kernel_probe.registers(tk.ptxas_report(degree), kernel_probe.K1_MAIN)}  [{card}]")
     del img8, cs, packed
     out["k2_ms"], out["k2_one_chunk_ms"], out["k2_plain_ms"] = {}, {}, {}
-    out["k2_bare_ms"], out["k2_bare_one_chunk_ms"] = {}, {}
+    out["k2_bare_ms"], out["k2_bare_one_chunk_ms"], out["k2_gap_ms"] = {}, {}, {}
     for k in (16,) + MANY_KNOTS[1:]:
         c_img, c_mask, *knots = curve_inputs(rng, BATCH, HEIGHT, WIDTH, dev,
                                              std=knot_std((k,), KNOT_STD), counts=(k, k, k))
@@ -2254,26 +2251,24 @@ def other_degrees_and_knots(torch, dev, rng, counters, train_counters, batch, ca
             one_ms = cuda_ms(lambda: ck.fused_curve_enhance(c_img, None, *knots), 10)
         finally:
             ck.block_chunks = chunks
-        slopes, c0 = (t.contiguous() for t in ck.prepare_knots(*(x.float() for x in knots)))
-        counts = (k, k, k)
-        bare_ms = cuda_ms(lambda: ck.launch_prepared(c_img, None, slopes, c0, counts), 10)
-        bare_one_ms = cuda_ms(lambda: ck.launch_prepared(c_img, None, slopes, c0, counts,
-                                                         chunks=1), 10)
+        bare_ms = cuda_ms(lambda: ck.launch_knots(c_img, None, *knots), 10)
+        bare_one_ms = cuda_ms(lambda: ck.launch_knots(c_img, None, *knots, chunks=1), 10)
         out["k2_ms"][k], out["k2_one_chunk_ms"][k] = ms, one_ms
         out["k2_bare_ms"][k], out["k2_bare_one_chunk_ms"][k] = bare_ms, bare_one_ms
-        out["k2_math"][k] = ck.math_policy((k, k, k))
+        out["k2_gap_ms"][k] = ms - bare_ms
         # The plain version's ramps are (K-1) x the image's pixels a curve:
         # 17 GB at 257 knots, so it is timed up to 96.
         if k <= 96:
             out["k2_plain_ms"][k] = cuda_ms(lambda: ck.fused_curve_enhance_reference(
                 c_img, c_mask, *knots), 2, warmup=1)
-        log(f"  K2 {k} knots a curve ({ck.math_policy((k, k, k))} color math): no mask "
+        log(f"  K2 {k} knots a curve: no mask "
             f"{ms:.3f} ms, mask {mask_ms:.3f} ms; with one run "
             f"of 256 pixels a block (the prologue once per 256 pixels) {one_ms:.3f} ms; bare, "
-            f"no mask {bare_ms:.3f} ms, one run {bare_one_ms:.3f} ms; "
+            f"no mask {bare_ms:.3f} ms (the wrapper {ms - bare_ms:+.3f} ms), one run "
+            f"{bare_one_ms:.3f} ms; "
             f"{chunks(k - 1)} runs a block; plain version with mask "
             f"{out['k2_plain_ms'].get(k, float('nan')):.3f} ms  [{card}]")
-        del c_img, c_mask, knots, slopes, c0
+        del c_img, c_mask, knots
     out["k1_build_s"] = builds
     return out
 
@@ -2354,17 +2349,11 @@ def main() -> int:
         f"launch: {time.perf_counter() - t0:.1f} s")
     from curl_tpu_torch.tools import kernel_probe
 
-    from curl_tpu_torch.ops.kernels import poly_tables
-
     for degree in (4,) + OTHER_DEGREES:
-        policy = poly_tables.math_policy(degree)
         for instance, line in sorted(kernel_probe.entries(tk.ptxas_report(degree)).items()):
-            log(f"  ptxas trispace_kernel degree {degree} ({policy} color math) {instance}: "
-                f"{line}")
+            log(f"  ptxas trispace_kernel degree {degree} {instance}: {line}")
     for instance, line in sorted(kernel_probe.entries(build.ptxas_report("curve_kernel")).items()):
-        # The 16-knot instances and the runtime-count ones (template counts 0).
-        policy = ck.math_policy((16,) * 3 if "Li16" in instance else (0,) * 3)
-        log(f"  ptxas curve_kernel ({policy} color math) {instance}: {line}")
+        log(f"  ptxas curve_kernel {instance}: {line}")
 
     log("phase 2: K1 against its plain version")
     max_abs_err = check_kernel(tk, dev, rng)
@@ -2669,7 +2658,6 @@ def main() -> int:
             "k1_max_abs_err_by_degree": by_key(other["k1_err"]),
             "k1_build_s_by_degree": by_key(other["k1_build_s"]),
             "k1_launches_by_degree": by_key(other["k1_launches"]),
-            "k1_math_by_degree": by_key(other["k1_math"]),
         },
         {
             "name": "fused_curve_enhance",
@@ -2697,7 +2685,7 @@ def main() -> int:
             "k2_plain_ms_by_knots": by_key(other["k2_plain_ms"]),
             "k2_max_abs_err_by_knots": by_key(other["k2_err"]),
             "k2_launches_by_knots": by_key(other["k2_launches"]),
-            "k2_math_by_knots": by_key(other["k2_math"]),
+            "k2_wrapper_gap_ms_by_knots": by_key(other["k2_gap_ms"]),
         },
         {
             "name": "tie_clip_grad",

@@ -1,15 +1,17 @@
 // Per-function check of the color math primitives of color_planes.cuh.
 //
-// Each primitive of the Lean and the Ieee policy (the constant divisions,
-// recip, sigmoid, the two sRGB powers, cube, cube root) is evaluated on every
-// float32 of a range of bit patterns and compared with float64 of the
-// function it computes: x / c, 1 / x, 1 / (1 + e^-x), u^2.4f and x^(1/2.4)
-// with the kernels' float exponents, t^3, and the cube root. The largest
-// absolute error, the largest error in ulps of the float32 nearest the
-// reference, the count of inputs where Lean and Ieee differ in any bit, and
-// the count of inputs checked are reduced on the card. Divisions and recip
-// count only inputs whose quotient is a normal float32, sigmoid only inputs
-// whose sigmoid is.
+// Each primitive the kernels use (the constant divisions, recip, sigmoid,
+// the two sRGB powers, cube, cube root) is evaluated on every float32 of a
+// range of bit patterns and compared with float64 of the function it
+// computes: x / c, 1 / x, 1 / (1 + e^-x), u^2.4f and x^(1/2.4) with the
+// kernels' float exponents, t^3, and the cube root. Beside it, the check's
+// yardstick: the IEEE form of the same function (IEEE division, powf,
+// expf), which no kernel runs. The largest absolute error, the largest
+// error in ulps of the float32 nearest the reference, of the primitive and
+// of the yardstick, the count of inputs where the two differ in any bit,
+// and the count of inputs checked are reduced on the card. Divisions and
+// recip count only inputs whose quotient is a normal float32, sigmoid only
+// inputs whose sigmoid is.
 //
 // Not a kernel of any path: ops/kernels/color_math.py builds it with
 // build.py and drives it for tools/kernel_probe.py and tests/test_torch_cuda.py.
@@ -24,9 +26,6 @@
 #include "color_planes.cuh"
 
 namespace {
-
-using curl_planes::Ieee;
-using curl_planes::Lean;
 
 constexpr int kThreads = 256;
 constexpr int kBlocks = 132 * 16;
@@ -52,62 +51,78 @@ __device__ __forceinline__ double ulp_at(double y) {
   return ldexp(1.0, e - 24);
 }
 
-// Each check: false to skip x; else the Lean and Ieee values and the float64
-// reference.
+// The IEEE forms of the primitives, as the build (no fast math) compiles
+// them: the yardstick of the check.
+namespace yardstick {
+template <class D> __device__ __forceinline__ float div(float x) { return x / D::c; }
+__device__ __forceinline__ float recip(float x) { return 1.0f / x; }
+__device__ __forceinline__ float srgb_pow(float u) { return powf(u, 2.4f); }
+__device__ __forceinline__ float srgb_root(float x) {
+  return powf(x, static_cast<float>(1.0 / 2.4));
+}
+__device__ __forceinline__ float cube(float t) { return powf(t, 3.0f); }
+__device__ __forceinline__ float cube_root(float t) {
+  return powf(t, static_cast<float>(1.0 / 3.0));
+}
+__device__ __forceinline__ float sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }
+}  // namespace yardstick
+
+// Each check: false to skip x; else the primitive's and the yardstick's
+// values and the float64 reference.
 template <class D> struct DivisionCheck {
-  __device__ bool operator()(float x, float& lean, float& ieee, double& ref) const {
-    ieee = curl_planes::div<Ieee, D>(x);
+  __device__ bool operator()(float x, float& got, float& ieee, double& ref) const {
+    ieee = yardstick::div<D>(x);
     if (!normal(ieee)) return false;
-    lean = curl_planes::div<Lean, D>(x);
+    got = curl_planes::div<D>(x);
     ref = static_cast<double>(x) / static_cast<double>(D::c);
     return true;
   }
 };
 
 struct RecipCheck {
-  __device__ bool operator()(float x, float& lean, float& ieee, double& ref) const {
-    ieee = Ieee::recip(x);
+  __device__ bool operator()(float x, float& got, float& ieee, double& ref) const {
+    ieee = yardstick::recip(x);
     if (!normal(ieee)) return false;
-    lean = Lean::recip(x);
+    got = curl_planes::recip(x);
     ref = 1.0 / static_cast<double>(x);
     return true;
   }
 };
 
 // Below x ~ -87.3 the sigmoid is subnormal, and from ~-88.7 on expf(-x)
-// overflows in both policies and the result is 0: those x are skipped.
+// overflows in both forms and the result is 0: those x are skipped.
 struct SigmoidCheck {
-  __device__ bool operator()(float x, float& lean, float& ieee, double& ref) const {
+  __device__ bool operator()(float x, float& got, float& ieee, double& ref) const {
     ref = 1.0 / (1.0 + exp(-static_cast<double>(x)));
     if (!isfinite(x) || !normal(ref)) return false;
-    lean = Lean::sigmoid(x);
-    ieee = Ieee::sigmoid(x);
+    got = curl_planes::sigmoid(x);
+    ieee = yardstick::sigmoid(x);
     return true;
   }
 };
 
 struct SrgbPowCheck {
-  __device__ bool operator()(float u, float& lean, float& ieee, double& ref) const {
-    lean = Lean::srgb_pow(u);
-    ieee = Ieee::srgb_pow(u);
+  __device__ bool operator()(float u, float& got, float& ieee, double& ref) const {
+    got = curl_planes::srgb_pow(u);
+    ieee = yardstick::srgb_pow(u);
     ref = pow(static_cast<double>(u), static_cast<double>(2.4f));
     return true;
   }
 };
 
 struct SrgbRootCheck {
-  __device__ bool operator()(float x, float& lean, float& ieee, double& ref) const {
-    lean = Lean::srgb_root(x);
-    ieee = Ieee::srgb_root(x);
+  __device__ bool operator()(float x, float& got, float& ieee, double& ref) const {
+    got = curl_planes::srgb_root(x);
+    ieee = yardstick::srgb_root(x);
     ref = pow(static_cast<double>(x), static_cast<double>(static_cast<float>(1.0 / 2.4)));
     return true;
   }
 };
 
 struct CubeCheck {
-  __device__ bool operator()(float t, float& lean, float& ieee, double& ref) const {
-    lean = Lean::cube(t);
-    ieee = Ieee::cube(t);
+  __device__ bool operator()(float t, float& got, float& ieee, double& ref) const {
+    got = curl_planes::cube(t);
+    ieee = yardstick::cube(t);
     const double d = t;
     ref = d * d * d;
     return true;
@@ -115,16 +130,16 @@ struct CubeCheck {
 };
 
 struct CbrtCheck {
-  __device__ bool operator()(float t, float& lean, float& ieee, double& ref) const {
-    lean = Lean::cbrt(t);
-    ieee = Ieee::cbrt(t);
+  __device__ bool operator()(float t, float& got, float& ieee, double& ref) const {
+    got = curl_planes::cube_root(t);
+    ieee = yardstick::cube_root(t);
     ref = cbrt(static_cast<double>(t));
     return true;
   }
 };
 
-// out: Lean's max abs and max ulp error (double bits), Ieee's, the count of
-// inputs where the two differ, the count checked.
+// out: the primitive's max abs and max ulp error (double bits), the
+// yardstick's, the count of inputs where the two differ, the count checked.
 constexpr int kOut = 6;
 
 __device__ __forceinline__ unsigned long long error_bits(double err) {
@@ -139,17 +154,17 @@ check_kernel(F check, uint32_t first, unsigned long long count, unsigned long lo
   for (unsigned long long i = static_cast<unsigned long long>(blockIdx.x) * kThreads + threadIdx.x;
        i < count; i += stride) {
     const float x = __uint_as_float(first + static_cast<uint32_t>(i));
-    float lean, ieee;
+    float got, ieee;
     double ref;
-    if (!check(x, lean, ieee, ref)) continue;
+    if (!check(x, got, ieee, ref)) continue;
     const double ulp = ulp_at(ref);
-    const double lean_err = static_cast<double>(lean) - ref;
+    const double got_err = static_cast<double>(got) - ref;
     const double ieee_err = static_cast<double>(ieee) - ref;
-    acc[0] = max(acc[0], error_bits(lean_err));
-    acc[1] = max(acc[1], error_bits(lean_err / ulp));
+    acc[0] = max(acc[0], error_bits(got_err));
+    acc[1] = max(acc[1], error_bits(got_err / ulp));
     acc[2] = max(acc[2], error_bits(ieee_err));
     acc[3] = max(acc[3], error_bits(ieee_err / ulp));
-    acc[4] += __float_as_uint(lean) != __float_as_uint(ieee);
+    acc[4] += __float_as_uint(got) != __float_as_uint(ieee);
     acc[5] += 1;
   }
 #pragma unroll

@@ -20,20 +20,14 @@
 // instructions per pixel, far above the card's fp32 ridge of ~20 FLOP/B. The
 // unfolded chain over (c1, c2, c3, x, y) costs per space 125 FMUL, 378 FFMA
 // and 126 shared-memory float4 broadcasts, ~1,900 instructions per pixel
-// over the three spaces. Under the Ieee color math (color_planes.cuh) the
-// conversions cost about as much again and do not shrink with the degree:
-// 12 IEEE powf, ~21 IEEE divisions by constants and 9 sigmoids per pixel,
-// long dependent sequences whose latency needs many warps to hide. At
-// degrees 1-3, where the chain is short (15, 45 and 105 folded monomials a
-// pixel over the three spaces at D = 1, 2, 3 against 210 at 4), that math was
-// most of the kernel's time.
-//
-// The color math's policy (poly_tables.MATH, `Math` in the generated
-// header): degrees 1-3 run curl_planes::Lean, in which the constant
-// divisions are corrected-reciprocal products (bitwise IEEE), the sRGB
-// powers run on the special-function unit, the cube is t*t*t and the cube
-// root cbrtf; from degree 4 on the instances keep Ieee, bitwise the
-// redesigns that tuned them.
+// over the three spaces. The color math (color_planes.cuh) adds a few
+// hundred a pixel that do not shrink with the degree: 12 sRGB and Lab
+// powers, ~21 divisions by constants and 9 sigmoids. Its first form, with
+// IEEE powf and divisions, cost about as much as the degree-4 chain again,
+// in long dependent sequences whose latency needs many warps to hide; the
+// lean form (corrected-reciprocal constant divisions, bitwise IEEE; the sRGB
+// powers on the special-function unit; t*t*t and cbrtf for the cube and
+// cube root) is a fraction of that at every degree.
 //
 // What this design does about it:
 // - Per-row y-fold (spatial instance). y is constant along a row, and every
@@ -47,35 +41,29 @@
 // - Two pixels per thread (kPix = 2), kThreads apart so that loads stay
 //   coalesced: each coefficient broadcast from shared memory feeds 6 FFMA
 //   instead of 3, which halves the shared loads per pixel. At degrees 1 and
-//   2, whose chain and lean color math are short, four pixels a thread (a
-//   block of 2,048 pixels) were faster in fp32 and u8 both
-//   (poly_tables.LAUNCH).
+//   2, whose chains are short, four pixels a thread (a block of 2,048
+//   pixels) were faster in fp32 and u8 both (poly_tables.LAUNCH).
 // - Occupancy before reuse. The color math's dependent sequences need many
 //   warps to hide their latency. __launch_bounds__(512, 2) holds the kernel
-//   to 64 registers, so two blocks of 16 warps share an SM; at degree 4 a
-//   120 B stack in L1 takes what does not fit, which costs less than the
-//   warps it buys. A block covers 1,024 pixels of a row, so its prologue
-//   (staging, fold, two barriers) is paid once per 1,024 pixels. These
-//   settings were the fastest of a one-time sweep on the card against one
-//   pixel a thread, 256- and 1,024-thread blocks and no register cap
-//   (PERF.md). From degree 5 on, blocks of 1,024 threads at the same 64
-//   registers and 32 warps an SM were faster: the prologue stages and folds
-//   3 x C(D+5, 5) coefficients (252 at D = 5, 462 at 6), and a block of
-//   2,048 pixels pays it half as often (poly_tables.LAUNCH).
-// - The chain's order (poly_tables.ORDER). Degrees 1-4 run the graded
+//   to 64 registers, so two blocks of 16 warps share an SM. A block covers
+//   1,024 pixels of a row, so its prologue (staging, fold, two barriers) is
+//   paid once per 1,024 pixels. These settings were the fastest of one-time
+//   sweeps on the card at every degree against one pixel a thread, 256- and
+//   1,024-thread blocks and no register cap (PERF.md).
+// - The chain's order (poly_tables.ORDER). Degrees 1-3 run the graded
 //   order of ops/poly.py, in which every monomial of degree D - 1 stays
 //   live until its last child is formed: C(D+2, 3) a pixel over (c1, c2,
-//   c3, x), 20 at D = 4, 35 at 5 and 56 at 6 (70 and 112 floats for two
-//   pixels); in that order degrees 5 and 6 needed 128 registers a thread,
-//   16 warps an SM. From degree 5 on the header lists the steps depth
-//   first: each monomial is formed as the same parent x var, and its
-//   subtree is walked before the parent's next child, so at most min(D, 4)
-//   monomials are live a pixel and those degrees fit in 64 registers. The
-//   FMUL and FFMA counts do not change; the sums are taken in the order of
-//   formation, so results differ from the graded chain's in the last bits
-//   only.
+//   c3, x), 20 at D = 4, 35 at 5 and 56 at 6 (40, 70 and 112 floats for two
+//   pixels); in that order degree 4 needed a 96-120 B stack at 64
+//   registers, and degrees 5 and 6 128 registers a thread, 16 warps an SM.
+//   From degree 4 on the header lists the steps depth first: each monomial
+//   is formed as the same parent x var, and its subtree is walked before
+//   the parent's next child, so at most min(D, 4) monomials are live a
+//   pixel and those degrees fit in 64 registers. The FMUL and FFMA counts
+//   do not change; the sums are taken in the order of formation, so
+//   results differ from the graded chain's in the last bits only.
 // - The u8 wire fused: a uint8 image is read and normalized as x / 255
-//   (the policy's division, bitwise IEEE's under both), and the composite
+//   (curl_planes::div, bitwise IEEE's), and the composite
 //   leaves as (uint8)min(max(v*255, 0), 255), the floor quantize of
 //   ops/wire.py, bit for bit. The build uses no fast math.
 // Tensor cores are not used. TF32 mma keeps ~10 mantissa bits, which breaks
@@ -104,6 +92,8 @@ namespace {
 constexpr int kBlockPixels = kThreads * kPix;
 constexpr int kMaxGridYZ = 65535;
 constexpr int kStaticSharedBytes = 48 * 1024;  // above this only by opt-in
+
+using curl_planes::sigmoid;
 
 // Number of monomials of degree <= kDegree in NV variables.
 template <int NV> struct NumCoeffs;
@@ -172,15 +162,11 @@ __device__ __forceinline__ void chain_eval(const float (&v)[kPix][NV], const flo
   chain_eval_impl<NV, N>(v, c, a, std::make_integer_sequence<int, N - 1>{});
 }
 
-// The color math's policy, Math, is the generated header's
-// (poly_tables.MATH): curl_planes::Lean at degrees 1-3, Ieee from 4 on.
-__device__ __forceinline__ float sigmoid(float x) { return Math::sigmoid(x); }
-
 // Storage <-> fp32. uint8 is the u8 wire: x / 255 in, floor-quantized out.
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float to_float(uint8_t x) {
-  return curl_planes::div<Math, curl_planes::By255>(static_cast<float>(x));
+  return curl_planes::div<curl_planes::By255>(static_cast<float>(x));
 }
 
 template <typename T> __device__ __forceinline__ T from_float(float x);
@@ -280,14 +266,14 @@ trispace_residual_kernel(const T* __restrict__ img, const float4* __restrict__ c
   // Lab space.
 #pragma unroll
   for (int p = 0; p < kPix; ++p) {
-    curl_planes::lab_from_rgb<Math>(rgb[p][0], rgb[p][1], rgb[p][2], v[p][0], v[p][1], v[p][2]);
+    curl_planes::lab_from_rgb(rgb[p][0], rgb[p][1], rgb[p][2], v[p][0], v[p][1], v[p][2]);
   }
   chain_eval<NV>(v, s_coef + N, o);
 #pragma unroll
   for (int p = 0; p < kPix; ++p) {
     float q0, q1, q2;
-    curl_planes::rgb_from_lab<Math>(sigmoid(o[p][0]), sigmoid(o[p][1]), sigmoid(o[p][2]), q0, q1,
-                                    q2);
+    curl_planes::rgb_from_lab(sigmoid(o[p][0]), sigmoid(o[p][1]), sigmoid(o[p][2]), q0,
+                              q1, q2);
     res[p][0] += 2.0f * (q0 - 0.5f);
     res[p][1] += 2.0f * (q1 - 0.5f);
     res[p][2] += 2.0f * (q2 - 0.5f);
@@ -296,14 +282,14 @@ trispace_residual_kernel(const T* __restrict__ img, const float4* __restrict__ c
   // HSV space.
 #pragma unroll
   for (int p = 0; p < kPix; ++p) {
-    curl_planes::hsv_from_rgb<Math>(rgb[p][0], rgb[p][1], rgb[p][2], v[p][0], v[p][1], v[p][2]);
+    curl_planes::hsv_from_rgb(rgb[p][0], rgb[p][1], rgb[p][2], v[p][0], v[p][1], v[p][2]);
   }
   chain_eval<NV>(v, s_coef + 2 * N, o);
 #pragma unroll
   for (int p = 0; p < kPix; ++p) {
     float q0, q1, q2;
-    curl_planes::rgb_from_hsv<Math>(sigmoid(o[p][0]), sigmoid(o[p][1]), sigmoid(o[p][2]), q0, q1,
-                                    q2);
+    curl_planes::rgb_from_hsv(sigmoid(o[p][0]), sigmoid(o[p][1]), sigmoid(o[p][2]), q0,
+                              q1, q2);
     res[p][0] += 2.0f * (q0 - 0.5f);
     res[p][1] += 2.0f * (q1 - 0.5f);
     res[p][2] += 2.0f * (q2 - 0.5f);

@@ -1,16 +1,15 @@
-"""The color math policies of K1 and K2 and their per-function check.
+"""The per-function check of K1's and K2's color math.
 
-`csrc/color_planes.cuh` writes each color conversion once over a math
-policy that supplies its primitives: `curl_planes::Ieee` (IEEE powf, expf
-and divisions) or `curl_planes::Lean` (corrected-reciprocal constant
-divisions, the sRGB powers on the special-function unit, t*t*t, cbrtf).
-Each kernel instance fixes its policy at build time (K1 by
-`poly_tables.MATH`, K2 by its knot counts); nothing chooses it at run time.
+`csrc/color_planes.cuh` gives the conversions their primitives:
+corrected-reciprocal constant divisions, the sRGB powers on the
+special-function unit, t*t*t, cbrtf, `__frcp_rn` for the reciprocal and the
+sigmoid's division.
 
 `divisors()` parses the header's constant divisors, as the compiler rounds
 them to float32. `check(name)` runs `csrc/color_math_check.cu` on the card:
-one primitive of both policies on every float32 of its domain against
-float64, with Lean's error bound of `PRIMITIVES` beside it. The check
+one primitive on every float32 of its domain against float64, beside the
+check's yardstick, the IEEE form of the same function (IEEE division,
+powf, expf), with the primitive's error bound of `PRIMITIVES`. The check
 library is built by `build.py` like the kernels, at its first call; it is
 no kernel of any path.
 """
@@ -32,11 +31,12 @@ _SOURCE = "color_math_check"
 
 # name: (primitive code of color_math_check.cu, domain as (lo, hi) or None for
 # every float32 (the check skips what falls outside the primitive's use),
-# Lean's bound in ulps of the float32 nearest the float64 reference: its
-# worst error over that domain on the card (NVIDIA H100, PERF.md), rounded
-# up, a record of that card's MUFU and libdevice rather than a limit of the
-# design, whose contract is the kernels' against their plain versions;
-# whether Lean is bitwise Ieee there). The domains hold what the kernels feed each primitive:
+# the primitive's bound in ulps of the float32 nearest the float64
+# reference: its worst error over that domain on the card (NVIDIA H100,
+# PERF.md), rounded up, a record of that card's MUFU and libdevice rather
+# than a limit of the design, whose contract is the kernels' against their
+# plain versions; whether it is bitwise the IEEE form there). The domains
+# hold what the kernels feed each primitive:
 # srgb_linearize's u >= (1e-4 + 0.055) / 1.055 (inputs up to 1, and fp32
 # images a little above), srgb_encode's x in [1e-4, ~5.6] (rgb_from_lab of
 # planes in [0, 1]), lab_finv's t in [1e-4, ~1.55], lab_f's t in [1e-4,
@@ -134,10 +134,11 @@ def _bits(value: float) -> int:
 
 
 def check(name: str) -> dict:
-    """One primitive of `checks()` on the card (CUDA), both policies:
-    {"lean_abs", "lean_ulp", "ieee_abs", "ieee_ulp"} (worst errors against
-    float64), "differ" (inputs where Lean and Ieee differ in a bit),
-    "count" (inputs checked), "bound_ulp" and "bitwise" (Lean's record)."""
+    """One primitive of `checks()` on the card (CUDA): {"abs", "ulp"} (the
+    primitive's worst errors against float64), {"ieee_abs", "ieee_ulp"}
+    (the IEEE yardstick's), "differ" (inputs where the two differ in a
+    bit), "count" (inputs checked), "bound_ulp" and "bitwise" (the
+    primitive's record)."""
     import torch
 
     code, domain, bound, bitwise = checks()[name]
@@ -152,7 +153,7 @@ def check(name: str) -> dict:
                            f"{lib.curl_color_math_error_string(rc).decode()} ({rc})")
     words = out.cpu().numpy()
     errors = words[:4].view(np.float64)
-    return {"lean_abs": float(errors[0]), "lean_ulp": float(errors[1]),
+    return {"abs": float(errors[0]), "ulp": float(errors[1]),
             "ieee_abs": float(errors[2]), "ieee_ulp": float(errors[3]),
             "differ": int(words[4]), "count": int(words[5]), "bound_ulp": bound,
             "bitwise": bitwise}

@@ -10,9 +10,9 @@ its kernel's backward through XLA.
 Any knot count K >= 2 a group runs the kernel: the 16-knot default
 (48/48/64) in an instance of its own, any other counts in the runtime-count
 instance, whose prefix tables take 10 x S x 12 B of shared memory for the
-longest curve's S = K - 1 segments. The two instances differ in their color
-math (`math_policy`, `csrc/color_planes.cuh`): the default keeps the IEEE
-powers and divisions, the runtime-count instance runs the lean ones.
+longest curve's S = K - 1 segments. The kernel takes the three
+exponentiated knot stacks as they are and forms each curve's slopes and c0
+in its prologue, so a launch costs the host no torch op per curve.
 
 `mask=None` means all ones: the kernel then reads no mask and multiplies by
 nothing, which is bitwise the same result. A uint8 image is the u8 wire: the
@@ -29,9 +29,10 @@ captures it like any other op.
 (plain-version calls are not counted), so a run can show that its main path
 went through the kernel.
 
-`prepare_knots` and `launch_prepared` are the op's two steps, the host
-knot preparation and the bare launch, for timing the kernel apart from the
-host work around it.
+`launch_knots` is the op's bare launch, without its checks, for timing
+the kernel apart from the host work around it. `prepare_knots` is the plain
+version of the kernel's knot preparation (slopes and c0), as the JAX
+package's kernel takes them.
 """
 
 from __future__ import annotations
@@ -59,7 +60,8 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2}
 def prepare_knots(knots_lab: Tensor, knots_rgb: Tensor, knots_hsv: Tensor) -> tuple[Tensor, Tensor]:
     """Exponentiated knot stacks (B,3,K_lab), (B,3,K_rgb), (B,4,K_hsv) ->
     slopes (B, 10, S), zero-padded to the longest curve's S = K-1 segments,
-    and c0 (B, 10, 1): the ten curves in application order."""
+    and c0 (B, 10, 1): the ten curves in application order. The plain
+    version of what the kernel's prologue forms from the stacks."""
     groups = [k[:, i] for k in (knots_lab, knots_rgb, knots_hsv) for i in range(k.shape[1])]
     max_seg = max(g.shape[-1] - 1 for g in groups)
     slopes = [
@@ -109,7 +111,7 @@ def _library() -> ctypes.CDLL:
     lib = build.load(_SOURCE)
     lib.curl_curve_enhance.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p,  # img, mask
-        ctypes.c_void_p, ctypes.c_void_p,  # slopes, c0
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # knots_lab, knots_rgb, knots_hsv
         ctypes.c_void_p,  # out
         ctypes.c_longlong, ctypes.c_longlong,  # batch, pixels per image
         ctypes.c_int, ctypes.c_int, ctypes.c_int,  # k_lab, k_rgb, k_hsv
@@ -123,17 +125,24 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def math_policy(counts) -> str:
-    """The color math of the instance that runs knot counts (k_lab, k_rgb,
-    k_hsv): "ieee" at the 16-knot default, "lean" at any other counts."""
-    return "ieee" if tuple(counts) == (16, 16, 16) else "lean"
-
-
 def block_chunks(seg: int) -> int:
-    """Runs of 256 pixels a block of the runtime-count instance covers at S
-    = `seg` segments a curve: ceil(S / 16), so the serial prefix sums of its
-    prologue cost a pixel no more than at the 16-knot default."""
-    return max(1, -(-seg // 16))
+    """Runs of 256 pixels a block covers at S = `seg` segments a curve: 4,
+    the fastest of 1, 2, 4 and 8 at the 16-knot default in a sweep on the
+    card (PERF.md), and ceil(S / 16) from 66 knots on, so the serial prefix
+    sums of its prologue cost a pixel no more than there."""
+    return max(4, -(-seg // 16))
+
+
+def check_knots(img: Tensor, knots_lab: Tensor, knots_rgb: Tensor, knots_hsv: Tensor) -> None:
+    """Raise unless the three stacks are (B, 3, K_lab), (B, 3, K_rgb) and
+    (B, 4, K_hsv) floating-point tensors for img's batch B, each K >= 2."""
+    b = img.shape[0]
+    for name, k, n in zip(("lab", "rgb", "hsv"), (knots_lab, knots_rgb, knots_hsv), _CURVES):
+        if k.dim() != 3 or tuple(k.shape[:2]) != (b, n) or k.shape[-1] < 2:
+            raise ValueError(f"knots_{name} must be ({b}, {n}, K) with K >= 2; "
+                             f"got {tuple(k.shape)}")
+        if not k.is_floating_point():
+            raise TypeError(f"knots_{name} must be floating point; got {k.dtype}")
 
 
 def _launch(img: Tensor, mask: Optional[Tensor], knots_lab: Tensor, knots_rgb: Tensor,
@@ -152,34 +161,35 @@ def _launch(img: Tensor, mask: Optional[Tensor], knots_lab: Tensor, knots_rgb: T
     b, h, w, _ = img.shape
     if b == 0:
         raise ValueError("batch must be at least 1")
-    slopes, c0 = prepare_knots(knots_lab.float(), knots_rgb.float(), knots_hsv.float())
+    check_knots(img, knots_lab, knots_rgb, knots_hsv)
     if h * w == 0:
         return torch.empty_like(img)
-    counts = (knots_lab.shape[-1], knots_rgb.shape[-1], knots_hsv.shape[-1])
-    return launch_prepared(img, mask, slopes.contiguous(), c0.contiguous(), counts)
+    # A no-op on the model's own fp32 output.
+    return launch_knots(img, mask, *(k.float().contiguous()
+                                     for k in (knots_lab, knots_rgb, knots_hsv)))
 
 
-def launch_prepared(img: Tensor, mask: Optional[Tensor], slopes: Tensor, c0: Tensor,
-                    counts: tuple[int, int, int], chunks: Optional[int] = None) -> Tensor:
-    """One launch of K2 on a non-empty image and contiguous
-    `prepare_knots` output for knot `counts`, `chunks` runs of 256 pixels a
-    block (`block_chunks` by default): the op's launch without its checks
-    and knot preparation. Counts in `LAUNCHES`."""
+def launch_knots(img: Tensor, mask: Optional[Tensor], knots_lab: Tensor, knots_rgb: Tensor,
+                 knots_hsv: Tensor, chunks: Optional[int] = None) -> Tensor:
+    """One launch of K2 on a non-empty image and contiguous float32 knot
+    stacks, `chunks` runs of 256 pixels a block (`block_chunks` by default):
+    the op's launch without its checks. Counts in `LAUNCHES`."""
     global LAUNCHES
     b, h, w, _ = img.shape
+    counts = tuple(k.shape[-1] for k in (knots_lab, knots_rgb, knots_hsv))
+    seg = max(counts) - 1
     out = torch.empty_like(img)
     lib = _library()
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream(img.device).cuda_stream
         rc = lib.curl_curve_enhance(
-            img.data_ptr(), None if mask is None else mask.data_ptr(), slopes.data_ptr(),
-            c0.data_ptr(), out.data_ptr(), b, h * w, *counts,
-            block_chunks(slopes.shape[-1]) if chunks is None else chunks,
-            _DTYPES[img.dtype], stream,
+            img.data_ptr(), None if mask is None else mask.data_ptr(), knots_lab.data_ptr(),
+            knots_rgb.data_ptr(), knots_hsv.data_ptr(), out.data_ptr(), b, h * w, *counts,
+            block_chunks(seg) if chunks is None else chunks, _DTYPES[img.dtype], stream,
         )
     if rc != 0:
         msg = lib.curl_curve_error_string(rc).decode()
-        raise RuntimeError(f"curve kernel launch failed at {slopes.shape[-1]} segments a curve: "
+        raise RuntimeError(f"curve kernel launch failed at {seg} segments a curve: "
                            f"{msg} ({rc})")
     LAUNCHES += 1
     return out
@@ -229,8 +239,8 @@ def fused_curve_enhance(
     """Paper-mode knot-curve enhancement of (B, H, W, 3) `img` under the
     (B, H, W, 1) `mask` (None: all ones, never materialized), with
     exponentiated knot stacks (B, 3, K_lab), (B, 3, K_rgb) and (B, 4, K_hsv),
-    each K >= 2. Returns clip(img + residual, 0, 1) * mask in
-    img's dtype; a uint8 image returns the uint8 result of the u8 wire, with
+    each K >= 2, in any floating dtype. Returns clip(img + residual, 0, 1) *
+    mask in img's dtype; a uint8 image returns the uint8 result of the u8 wire, with
     no gradient. A CUDA tensor launches the kernel; a CPU tensor takes the
     plain version."""
     if img.dim() != 4 or img.shape[-1] != 3:
@@ -238,10 +248,7 @@ def fused_curve_enhance(
     b, h, w, _ = img.shape
     if mask is not None and tuple(mask.shape) != (b, h, w, 1):
         raise ValueError(f"mask must be {(b, h, w, 1)}; got {tuple(mask.shape)}")
-    for name, k, n in zip(("lab", "rgb", "hsv"), (knots_lab, knots_rgb, knots_hsv), _CURVES):
-        if k.dim() != 3 or tuple(k.shape[:2]) != (b, n) or k.shape[-1] < 2:
-            raise ValueError(f"knots_{name} must be ({b}, {n}, K) with K >= 2; "
-                             f"got {tuple(k.shape)}")
+    check_knots(img, knots_lab, knots_rgb, knots_hsv)
     if img.device.type == "cpu":
         return fused_curve_enhance_reference(img, mask, knots_lab, knots_rgb, knots_hsv)
     if img.device.type != "cuda":

@@ -2,8 +2,8 @@
 repeat on every run, on one NVIDIA GPU:
 
     python3 -m curl_tpu_torch.tools.kernel_probe [--sweep D [D ...]]
-        [--other-order D [D ...]] [--other-math D [D ...]] [--other-math-k2]
-        [--math-check] [--parent DIR] [--no-sass] [--no-plain]
+        [--other-order D [D ...]] [--k2-chunks C [C ...]] [--math-check]
+        [--parent DIR] [--no-sass] [--no-plain]
 
 1. K1's instance sweep, at each degree D of `--sweep` (default 4). K1's
    generated header (`ops/kernels/poly_tables.py`) fixes its pixels per
@@ -18,48 +18,47 @@ repeat on every run, on one NVIDIA GPU:
    registers and spills of the spatial fp32 composite kernel are printed
    beside the times. With `--other-order`, the same for each degree listed
    with its chain in the other order than `poly_tables.ORDER` gives it
-   (depth-first at degrees 1-4, graded from 5 on), at the built launch
+   (depth-first at degrees 1-3, graded from 4 on), at the built launch
    shape: a finding only, the kernel is built in the order of ORDER. With
-   `--other-math`, the same for each degree listed with the other color
-   math policy than `poly_tables.MATH` gives it (`csrc/color_planes.cuh`:
-   Lean at degrees 4-6, Ieee at 1-3), held to the built instance within
-   K1's contracts (below); `--other-math-k2` builds K2 with its 16-knot
-   instance under Lean from a copy of its source, holds it to the built one
-   within K2's contracts and times both in turns. Findings only: the
-   policies are fixed by MATH and by K2's instance choice.
+   `--k2-chunks`, K2's 16-knot instance at each listed number of runs of
+   256 pixels a block, against the built `block_chunks`, bitwise, and
+   timed in turns with it (built, listed, listed, built), with and without
+   a mask, fp32 and u8.
 0. With `--parent DIR`, a checkout of another version of the repository
    (`git archive`): its K1 at degrees 1-6 (each with the header its own
    `poly_tables.py` generates) and its K2 are built with the same flags.
-   K1 at BITWISE_DEGREES (4-6) and 16-knot K2 are held bitwise against
-   this version's on the inputs of `chip_smoke.py` phases 2 and 5 (fp32
-   residual and composite, a row band at row0 = 540, odd 17x23,
-   non-spatial, bf16, the u8 wire; K2 with and without a mask), with the
+   K1 at BITWISE_DEGREES (1-3) and K2's runtime-count instance are held
+   bitwise against this version's on the inputs of `chip_smoke.py` phases
+   2 and 5 (fp32 residual and composite, a row band at row0 = 540, odd
+   17x23, non-spatial, bf16, the u8 wire; K2 at (8, 12, 20), (2, 65, 5),
+   (2, 96, 257), 96 and 257 knots, with and without a mask), K1 with the
    same ptxas lines. K1 at the other degrees is held to the parent's
    within K1's contract against its plain version (fp32 2e-4; bf16 99.9th
-   percentile 1e-2; u8 1 level, 99.9% equal), and K2's runtime-count
-   instance at (8, 12, 20), (2, 65, 5), 96 and 257 knots within K2's (fp32
-   all but 1e-5 of the values within 2e-4 at 16 knots' steepness of knot
-   std 0.05; u8 99.9% equal and all but 1e-5 within 1 level). ptxas's
-   registers and spills of every instance are printed side by side. The
-   1080p batch-8 times are taken in turns (parent, this, this, parent) as
-   bare library calls: K1 at every degree, fp32 and u8 composite; K2 on the
-   same prepared knots at 16, 96 and 257 knots, and the runtime-count
-   instance with `block_chunks`'s runs against one run of 256 pixels a
-   block (the prologue's share).
+   percentile 1e-2; u8 1 level, 99.9% equal), and 16-knot K2 within K2's
+   (fp32 all but 1e-5 of the values within 2e-4 at knot std 0.05; u8 99.9%
+   equal and all but 1e-5 within 1 level). A parent whose K2 takes prepared
+   slopes and c0 (before the kernel formed them itself) gets them from
+   `ck.prepare_knots`. ptxas's registers and spills of every instance are
+   printed side by side. The 1080p batch-8 times are taken in turns
+   (parent, this, this, parent) as bare library calls: K1 at every degree,
+   fp32 and u8 composite; K2 at 16 knots (with and without a mask), 96
+   and 257 knots, fp32 and u8, and the runtime-count instance with
+   `block_chunks`'s runs against one run of 256 pixels a block (the
+   prologue's share).
 2. The static SASS (`cuobjdump -sass`) by opcode of the spatial fp32
    composite instance of K1 at degrees 4 (the main path) and 3, and of
    K2's 16-knot and runtime-count instances without a mask, with the
-   parent's degree-3 and runtime-count ones under `--parent`: instructions,
+   parent's degree-4 and K2 ones under `--parent`: instructions,
    instructions a pixel, MUFU.* and FCHK. K1 is fully unrolled, so its
    count is close to what a thread issues for its kPix pixels, apart from
-   the slow paths of IEEE division and powf, which are branched around.
-   K2's runtime-count instance loops over its runs of 256 pixels: its count
-   is the prologue and one pixel.
+   slow paths that are branched around. K2 loops over its runs of 256
+   pixels: its count is the prologue and one pixel.
 4. With `--math-check`, the per-function check of the color math
-   (`ops/kernels/color_math.py`): each primitive of both policies on every
-   float32 of its domain against float64 on the card, with Lean's recorded
-   bound; it fails if Lean exceeds a bound or a primitive recorded as
-   bitwise (the constant divisions, recip, sigmoid) differs from Ieee.
+   (`ops/kernels/color_math.py`): each primitive on every float32 of its
+   domain against float64 on the card, beside its IEEE yardstick, with its
+   recorded bound; it fails if a primitive exceeds its bound or one
+   recorded as bitwise (the constant divisions, recip, sigmoid) differs
+   from the IEEE form.
 3. The cost of the plain versions, which are also the kernels' backward:
    K1's and K2's plain forward at 1080p batch 8 (K2 at 16 knots with a
    mask, as `chip_smoke.py` times it), and one training step through each
@@ -134,8 +133,6 @@ PROBE_DIR = build.BUILD_DIR / "probe"
 K1_MAIN = "trispace_residual_kernelIfLb1ELb1E"
 K2_MAIN = "curve_enhance_kernelIfLb0ELi16ELi16ELi16E"
 K2_RUNTIME = "curve_enhance_kernelIfLb0ELi0ELi0ELi0E"
-# K2's 16-knot instance's policy, as curve_kernel.cu declares it.
-K2_FIXED_MATH = "using FixedMath = curl_planes::Ieee;"
 
 
 def log(msg: str) -> None:
@@ -188,21 +185,14 @@ def other_order(degree: int) -> str:
     return "graded" if poly_tables.chain_order(degree) == "depth_first" else "depth_first"
 
 
-def other_policy(degree: int) -> str:
-    """The color math policy K1 is not built with at `degree`."""
-    return "ieee" if poly_tables.math_policy(degree) == "lean" else "lean"
-
-
 def k1_variant_header(degree: int, pixels: int, threads: int, min_blocks: int,
-                      order: Optional[str] = None, policy: Optional[str] = None) -> str:
+                      order: Optional[str] = None) -> str:
     """`degree`'s generated header with other launch constants, and with its
-    chain in `order` and its color math `policy` (by default the degree's
-    own)."""
+    chain in `order` (by default the degree's own)."""
     values = {"kPix": pixels, "kThreads": threads, "kMinBlocks": min_blocks}
     text, n = _K1_CONSTANTS.subn(lambda m: f"constexpr int {m[1]} = {values[m[1]]};",
                                  poly_tables.render(degree,
-                                                    order or poly_tables.chain_order(degree),
-                                                    policy or poly_tables.math_policy(degree)))
+                                                    order or poly_tables.chain_order(degree)))
     if n != 3:
         raise RuntimeError("K1's header must declare kPix, kThreads and kMinBlocks as "
                            f"`constexpr int`; found {n}")
@@ -220,35 +210,17 @@ def nvcc(source: Path, include: Path, lib: Path) -> str:
 
 
 def build_k1_variant(degree: int, pixels: int, threads: int, min_blocks: int,
-                     order: Optional[str] = None,
-                     policy: Optional[str] = None) -> tuple[Path, str]:
-    """Build K1 at `degree` with other constants (and chain order, and
-    color math policy); returns (library, ptxas report)."""
+                     order: Optional[str] = None) -> tuple[Path, str]:
+    """Build K1 at `degree` with other constants (and chain order); returns
+    (library, ptxas report)."""
     stem = f"trispace_kernel_d{degree}_p{pixels}_t{threads}_b{min_blocks}"
-    stem += "".join(f"_{x}" for x in (order, policy) if x)
+    stem += f"_{order}" if order else ""
     include = PROBE_DIR / stem
     include.mkdir(parents=True, exist_ok=True)
     (include / poly_tables.HEADER).write_text(
-        k1_variant_header(degree, pixels, threads, min_blocks, order, policy))
+        k1_variant_header(degree, pixels, threads, min_blocks, order))
     lib = PROBE_DIR / f"lib{stem}.so"
     return lib, nvcc(build.CSRC / "trispace_kernel.cu", include, lib)
-
-
-def k2_other_math_source() -> str:
-    """curve_kernel.cu with its 16-knot instance under curl_planes::Lean."""
-    text = (build.CSRC / "curve_kernel.cu").read_text()
-    if text.count(K2_FIXED_MATH) != 1:
-        raise RuntimeError(f"curve_kernel.cu must declare `{K2_FIXED_MATH}` once")
-    return text.replace(K2_FIXED_MATH, "using FixedMath = curl_planes::Lean;")
-
-
-def build_k2_other_math() -> tuple[Path, str]:
-    """Build K2 from `k2_other_math_source`; returns (library, ptxas report)."""
-    source = PROBE_DIR / "curve_kernel_lean16" / "curve_kernel.cu"
-    source.parent.mkdir(parents=True, exist_ok=True)
-    source.write_text(k2_other_math_source())
-    lib = PROBE_DIR / "libcurve_kernel_lean16.so"
-    return lib, nvcc(source, build.CSRC, lib)
 
 
 def load_k1(path: Path) -> ctypes.CDLL:
@@ -305,13 +277,13 @@ def entries(report: str) -> dict[str, str]:
 
 
 # K1's degrees in section 0: bitwise the parent's at BITWISE_DEGREES (and
-# 16-knot K2), within the contracts at the others (and K2's runtime-count
-# instance).
+# K2's runtime-count instance), within the contracts at the others (and
+# 16-knot K2).
 PARENT_DEGREES = (1, 2, 3, 4, 5, 6)
-BITWISE_DEGREES = (4, 5, 6)
-# K2's runtime-count instance against the parent's: two small cases and two
-# timed at 1080p batch 8.
-PARENT_COUNTS = ((8, 12, 20), (2, 65, 5))
+BITWISE_DEGREES = (1, 2, 3)
+# K2's runtime-count instance against the parent's: three small cases and
+# two timed at 1080p batch 8.
+PARENT_COUNTS = ((8, 12, 20), (2, 65, 5), (2, 96, 257))
 TIMED_KNOTS = (16, 96, 257)
 _PARENT_HEADERS = (
     "import json, sys\n"
@@ -334,30 +306,46 @@ def parent_k1_path(degree: int) -> Path:
 PARENT_K2 = PROBE_DIR / "parent" / "libcurve_kernel.so"
 
 
-def load_k2(path: Path) -> ctypes.CDLL:
+def parent_k2_takes_slopes(parent: Path) -> bool:
+    """Whether the parent's K2 takes prepared slopes and c0 (its C entry
+    before the kernel formed them from the knots)."""
+    text = (parent / "curl_tpu_torch" / "csrc" / "curve_kernel.cu").read_text()
+    return "const void* slopes" in text
+
+
+def load_k2(path: Path, takes_slopes: bool) -> ctypes.CDLL:
+    """K2's library at `path`; `takes_slopes`: its C entry takes (slopes,
+    c0), else the three knot stacks."""
     lib = ctypes.CDLL(str(path))
-    lib.curl_curve_enhance.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    pointers = 5 if takes_slopes else 6
+    lib.curl_curve_enhance.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_longlong] * 2
+                                       + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     lib.curl_curve_enhance.restype = ctypes.c_int
+    lib.takes_slopes = takes_slopes
     return lib
 
 
-def k2_prepared(*knots) -> tuple:
-    """(slopes, c0, knot counts) as the wrapper prepares them for K2."""
-    slopes, c0 = ck.prepare_knots(*[k.float() for k in knots])
-    return slopes.contiguous(), c0.contiguous(), tuple(k.shape[-1] for k in knots)
+def k2_inputs(lib: ctypes.CDLL, *knots) -> tuple:
+    """(pointer tensors, knot counts) that `k2_launch` hands `lib` for these
+    knot stacks: the stacks as contiguous float32, or `ck.prepare_knots`'
+    slopes and c0 for a library that takes them."""
+    knots = tuple(k.float().contiguous() for k in knots)
+    counts = tuple(k.shape[-1] for k in knots)
+    if lib.takes_slopes:
+        return tuple(x.contiguous() for x in ck.prepare_knots(*knots)), counts
+    return knots, counts
 
 
-def k2_launch(lib: ctypes.CDLL, img, mask, prepared, chunks: Optional[int] = None):
-    """One bare launch of K2 of `lib` on prepared knots, `chunks` runs of 256
-    pixels a block (the wrapper's `block_chunks` by default)."""
-    slopes, c0, counts = prepared
+def k2_launch(lib: ctypes.CDLL, img, mask, inputs, chunks: Optional[int] = None):
+    """One bare launch of K2 of `lib` on `k2_inputs`' output, `chunks` runs
+    of 256 pixels a block (the wrapper's `block_chunks` by default)."""
+    tensors, counts = inputs
     got = torch.empty_like(img)
     b, h, w, _ = img.shape
     rc = lib.curl_curve_enhance(
-        img.data_ptr(), None if mask is None else mask.data_ptr(), slopes.data_ptr(),
-        c0.data_ptr(), got.data_ptr(), b, h * w, *counts,
-        ck.block_chunks(slopes.shape[-1]) if chunks is None else chunks, _DTYPES[img.dtype],
+        img.data_ptr(), None if mask is None else mask.data_ptr(),
+        *(x.data_ptr() for x in tensors), got.data_ptr(), b, h * w, *counts,
+        ck.block_chunks(max(counts) - 1) if chunks is None else chunks, _DTYPES[img.dtype],
         torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"K2 launch of {lib._name} failed ({rc})")
@@ -365,8 +353,8 @@ def k2_launch(lib: ctypes.CDLL, img, mask, prepared, chunks: Optional[int] = Non
 
 
 def k2_call(lib: ctypes.CDLL, img, mask, *knots) -> torch.Tensor:
-    """K2 of `lib` through the wrapper's knot preparation and runs a block."""
-    return k2_launch(lib, img, mask, k2_prepared(*knots))
+    """K2 of `lib` on these knot stacks, prepared as `lib` takes them."""
+    return k2_launch(lib, img, mask, k2_inputs(lib, *knots))
 
 
 def k1_agree(what: str, a, b, bitwise: bool = False) -> None:
@@ -396,14 +384,19 @@ def k1_agree(what: str, a, b, bitwise: bool = False) -> None:
 
 def k2_agree(what: str, a, b) -> None:
     """`a` within K2's contract of `b` at 16 knots' steepness of knot std
-    0.05: fp32 all but CURVE_FLIP_SHARE of the values within TOL; the u8
-    wire U8_SAME_SHARE equal and all but CURVE_FLIP_SHARE within 1 level."""
+    0.05: fp32 all but CURVE_FLIP_SHARE of the values within TOL; bf16 at
+    the 99.9th percentile within BF16_P999_TOL; the u8 wire U8_SAME_SHARE
+    equal and all but CURVE_FLIP_SHARE within 1 level."""
     torch.cuda.synchronize()
     diff = (a.float() - b.float()).abs()
     if a.dtype == torch.uint8:
         share, far = float((diff == 0).float().mean()), int((diff > 1).sum())
         ok = share >= U8_SAME_SHARE and far <= CURVE_FLIP_SHARE * diff.numel()
         found = f"{share:.6f} equal, {far} more than 1 apart, max {float(diff.max()):.0f}"
+    elif a.dtype == torch.bfloat16:
+        flat = diff.flatten()
+        p999 = float(flat.sort().values[int(0.999 * (flat.numel() - 1))])
+        ok, found = p999 <= BF16_P999_TOL, f"p99.9 {p999:.3e}, max {float(diff.max()):.3e}"
     else:
         off = int((diff > TOL).sum())
         ok = off <= CURVE_FLIP_SHARE * diff.numel()
@@ -450,11 +443,12 @@ def compare_parent(card: str, rng, parent: Path) -> None:
             a, b = theirs.get(key, "absent"), ours.get(key, "absent")
             log(f"  {key}: parent {a}; this " + ("the same" if a == b else b))
             # The instances this version keeps: every one of the bitwise
-            # degrees, and K2's 16-knot ones.
-            if (bitwise or (bitwise is None and "Li16" in key)) and a != b:
+            # degrees.
+            if bitwise and a != b:
                 raise AssertionError(f"{what} {key}: ptxas differs from the parent's")
     p_k1 = {d: load_k1(parent_k1_path(d)) for d in PARENT_DEGREES}
-    p_k2 = load_k2(PARENT_K2)
+    p_k2 = load_k2(PARENT_K2, parent_k2_takes_slopes(parent))
+    this_k2 = load_k2(build.build("curve_kernel"), False)
 
     img = torch.from_numpy(rng.uniform(0, 1, (BATCH, HEIGHT, WIDTH, 3)).astype(np.float32)).cuda()
     img16, img8 = img.to(torch.bfloat16), (img * 255).to(torch.uint8)
@@ -463,8 +457,7 @@ def compare_parent(card: str, rng, parent: Path) -> None:
     band = img[:, row0:].contiguous()
     for degree in PARENT_DEGREES:
         bitwise = degree in BITWISE_DEGREES
-        log(f"K1 degree {degree} ({poly_tables.math_policy(degree)} color math) against the "
-            f"parent's, 1080p batch {BATCH}"
+        log(f"K1 degree {degree} against the parent's, 1080p batch {BATCH}"
             + ("" if bitwise else " (within K1's contract against its plain version)"))
         n, n3 = poly.num_monomials(degree, 5), poly.num_monomials(degree, 3)
         cs = [torch.from_numpy(rng.normal(scale=0.2, size=(BATCH, 3, n)).astype(np.float32))
@@ -500,68 +493,89 @@ def compare_parent(card: str, rng, parent: Path) -> None:
         for x in (img, img8):
             p_ms, t_ms = in_turns(lambda: k1_composite(p_lib, x, packed),
                                   lambda: k1_composite(this_k1, x, packed), ITERS)
-            log(f"  K1 degree {degree} ({poly_tables.math_policy(degree)}) 1080p batch {BATCH} "
-                f"{x.dtype} composite: parent {p_ms[0]:.4f} / {p_ms[1]:.4f} ms, this "
-                f"{t_ms[0]:.4f} / {t_ms[1]:.4f} ms  [{card}]")
+            log(f"  K1 degree {degree} 1080p batch {BATCH} {x.dtype} composite: parent "
+                f"{p_ms[0]:.4f} / {p_ms[1]:.4f} ms, this {t_ms[0]:.4f} / {t_ms[1]:.4f} ms  "
+                f"[{card}]")
     del img16, img8, band
 
-    log(f"K2 against the parent's, 1080p batch {BATCH}")
+    takes = "slopes and c0" if p_k2.takes_slopes else "the knot stacks"
+    log(f"K2 against the parent's, 1080p batch {BATCH} (the parent's K2 takes {takes})")
     c_img, mask, knots = curve_inputs(rng, BATCH, HEIGHT, WIDTH, (16, 16, 16), std=0.05)
     cases = {"fp32 mask": (c_img, mask), "fp32 no mask": (c_img, None),
              "bf16 mask": (c_img.bfloat16(), mask.bfloat16()),
              "u8 wire, u8 mask": ((c_img * 255).to(torch.uint8), mask.to(torch.uint8))}
     for what, (x, m) in cases.items():
-        k1_agree(f"16 knots {what}", ck.fused_curve_enhance(x, m, *knots),
-                 k2_call(p_k2, x, m, *knots), bitwise=True)
+        k2_agree(f"16 knots {what}", ck.fused_curve_enhance(x, m, *knots),
+                 k2_call(p_k2, x, m, *knots))
     for counts in PARENT_COUNTS:
         x, m, ks = curve_inputs(rng, 2, 96, 160, counts, std=steep_knots(counts))
-        k2_agree(f"runtime-count instance at {counts}", ck.fused_curve_enhance(x, m, *ks),
-                 k2_call(p_k2, x, m, *ks))
         x8, m8 = (x * 255).to(torch.uint8), m.to(torch.uint8)
-        k2_agree(f"runtime-count instance at {counts}, u8 wire",
-                 ck.fused_curve_enhance(x8, m8, *ks), k2_call(p_k2, x8, m8, *ks))
+        for what, (xx, mm) in {"": (x, m), ", no mask": (x, None), ", u8 wire": (x8, m8)}.items():
+            k1_agree(f"runtime-count instance at {counts}{what}",
+                     ck.fused_curve_enhance(xx, mm, *ks), k2_call(p_k2, xx, mm, *ks),
+                     bitwise=True)
     for k in TIMED_KNOTS:
         if k != 16:
             _, _, knots = curve_inputs(rng, BATCH, 1, 1, (k, k, k), std=steep_knots((k,)))
-            k2_agree(f"{k} knots fp32 no mask", ck.fused_curve_enhance(c_img, None, *knots),
-                     k2_call(p_k2, c_img, None, *knots))
             x8 = (c_img * 255).to(torch.uint8)
-            k2_agree(f"{k} knots u8 wire", ck.fused_curve_enhance(x8, None, *knots),
-                     k2_call(p_k2, x8, None, *knots))
-        # Bare launches on the same prepared knots, as K1's: the wrapper's
-        # host work (knot preparation, the op's dispatch) is near a lean
-        # launch's length.
-        prepared, this_k2 = k2_prepared(*knots), ck._library()
-        for what, x in (("fp32 no mask", c_img), ("u8 wire", (c_img * 255).to(torch.uint8))):
-            p_ms, t_ms = in_turns(lambda: k2_launch(p_k2, x, None, prepared),
-                                  lambda: k2_launch(this_k2, x, None, prepared), ITERS)
-            log(f"  K2 {k} knots ({ck.math_policy((k, k, k))}) 1080p batch {BATCH} {what}: parent "
-                f"{p_ms[0]:.4f} / {p_ms[1]:.4f} ms, this {t_ms[0]:.4f} / {t_ms[1]:.4f} ms  [{card}]")
-            if k != 16:
+            for what, (x, m) in (("fp32 no mask", (c_img, None)), ("fp32 mask", (c_img, mask)),
+                                 ("u8 wire", (x8, None))):
+                k1_agree(f"{k} knots {what}", ck.fused_curve_enhance(x, m, *knots),
+                         k2_call(p_k2, x, m, *knots), bitwise=True)
+        # Bare launches, each library on the inputs it takes (the parent's
+        # slopes prepared before the timing): the kernels alone.
+        theirs, ours = k2_inputs(p_k2, *knots), k2_inputs(this_k2, *knots)
+        timed = [("fp32 no mask", c_img, None), ("u8 wire", (c_img * 255).to(torch.uint8), None)]
+        if k == 16:
+            timed.append(("fp32 mask", c_img, mask))
+        for what, x, m in timed:
+            p_ms, t_ms = in_turns(lambda: k2_launch(p_k2, x, m, theirs),
+                                  lambda: ck.launch_knots(x, m, *ours[0]), ITERS)
+            log(f"  K2 {k} knots 1080p batch {BATCH} {what}: parent {p_ms[0]:.4f} / "
+                f"{p_ms[1]:.4f} ms, this {t_ms[0]:.4f} / {t_ms[1]:.4f} ms  [{card}]")
+            if k != 16 and m is None:
                 # The prologue's share: one run of 256 pixels a block against
                 # block_chunks's runs.
-                b_ms, o_ms = in_turns(lambda: k2_launch(this_k2, x, None, prepared),
-                                      lambda: k2_launch(this_k2, x, None, prepared, chunks=1),
+                b_ms, o_ms = in_turns(lambda: ck.launch_knots(x, None, *ours[0]),
+                                      lambda: ck.launch_knots(x, None, *ours[0], chunks=1),
                                       ITERS)
                 log(f"  K2 {k} knots {what}: {ck.block_chunks(k - 1)} runs a block "
                     f"{b_ms[0]:.4f} / {b_ms[1]:.4f} ms, one run a block {o_ms[0]:.4f} / "
                     f"{o_ms[1]:.4f} ms  [{card}]")
 
 
-def k1_sweep(card: str, rng, sweep, other, other_math) -> None:
-    """Section 1: the launch shapes of K1_VARIANTS at the degrees of `sweep`,
-    the other chain order at the degrees of `other` and the other color math
-    at the degrees of `other_math`."""
-    plans = {d: [] for d in sorted(set(sweep) | set(other) | set(other_math))}
+def k2_chunks(card: str, rng, chunks) -> None:
+    """Section 1 for K2 (`--k2-chunks`): the 16-knot instance at each of
+    `chunks` runs of 256 pixels a block against the built `block_chunks`,
+    bitwise, timed in turns."""
+    img, mask, knots = curve_inputs(rng, BATCH, HEIGHT, WIDTH, (16, 16, 16), std=0.05)
+    img8, mask8 = (img * 255).to(torch.uint8), mask.to(torch.uint8)
+    knots = [k.contiguous() for k in knots]
+    built = ck.block_chunks(15)
+    for what, x, m in (("fp32 no mask", img, None), ("fp32 mask", img, mask),
+                       ("u8 wire", img8, None), ("u8 wire, u8 mask", img8, mask8)):
+        ref = ck.launch_knots(x, m, *knots)
+        for c in chunks:
+            k1_agree(f"K2 16 knots {what}, {c} runs a block, against {built}",
+                     ck.launch_knots(x, m, *knots, chunks=c), ref, bitwise=True)
+            b_ms, v_ms = in_turns(lambda: ck.launch_knots(x, m, *knots),
+                                  lambda: ck.launch_knots(x, m, *knots, chunks=c), ITERS)
+            log(f"K2 16 knots 1080p batch {BATCH} {what}: built ({built} runs a block) "
+                f"{b_ms[0]:.4f} / {b_ms[1]:.4f} ms, {c} runs {v_ms[0]:.4f} / {v_ms[1]:.4f} ms  "
+                f"[{card}]")
+
+
+def k1_sweep(card: str, rng, sweep, other) -> None:
+    """Section 1: the launch shapes of K1_VARIANTS at the degrees of `sweep`
+    and the other chain order at the degrees of `other`."""
+    plans = {d: [] for d in sorted(set(sweep) | set(other))}
     for d in sweep:
-        plans[d] += [(v, None, None) for v in K1_VARIANTS[d]]
+        plans[d] += [(v, None) for v in K1_VARIANTS[d]]
     for d in other:
-        plans[d].append((poly_tables.launch_shape(d), other_order(d), None))
-    for d in other_math:
-        plans[d].append((poly_tables.launch_shape(d), None, other_policy(d)))
+        plans[d].append((poly_tables.launch_shape(d), other_order(d)))
     jobs = [lambda d=d: (tk.build_library(d), tk.ptxas_report(d)) for d in plans]
-    jobs += [lambda d=d, v=v, o=o, m=m: build_k1_variant(d, *v, order=o, policy=m)
-             for d, plan in plans.items() for v, o, m in plan]
+    jobs += [lambda d=d, v=v, o=o: build_k1_variant(d, *v, order=o)
+             for d, plan in plans.items() for v, o in plan]
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
         results = list(pool.map(lambda job: job(), jobs))
     built_libs, variants = results[:len(plans)], iter(results[len(plans):])
@@ -580,12 +594,11 @@ def _sweep_degree(card, rng, degree, img, img8, built, built_report, plan, varia
     ref, ref8 = k1_composite(built, img, packed), k1_composite(built, img8, packed)
     pixels, threads, min_blocks = poly_tables.launch_shape(degree)
     log(f"K1 degree {degree} built instance ({pixels} px, {threads} threads, {min_blocks} "
-        f"blocks, {poly_tables.chain_order(degree)} order, {poly_tables.math_policy(degree)} "
-        f"color math): {registers(built_report, K1_MAIN)}")
-    for ((pixels, threads, min_blocks), order, policy), (path, report) in zip(plan, variants):
+        f"blocks, {poly_tables.chain_order(degree)} order): "
+        f"{registers(built_report, K1_MAIN)}")
+    for ((pixels, threads, min_blocks), order), (path, report) in zip(plan, variants):
         what = f"{pixels} px, {threads} threads, {min_blocks} blocks"
-        what += "".join(f", {x}" for x in (order and f"{order} order",
-                                            policy and f"{policy} color math") if x)
+        what += f", {order} order" if order else ""
         lib = load_k1(path)
         k1_agree(f"K1 degree {degree} {what} fp32 against the built instance",
                  k1_composite(lib, img, packed), ref)
@@ -599,28 +612,6 @@ def _sweep_degree(card, rng, degree, img, img8, built, built_report, plan, varia
                          f"{v_ms[1]:.4f} ms")
         log(f"K1 degree {degree}, {what}: {registers(report, K1_MAIN)}; 1080p batch {BATCH} "
             f"composite fp32: {times[0]}; u8: {times[1]}  [{card}]")
-
-
-def k2_other_math(card: str, rng) -> None:
-    """Section 1 for K2 (`--other-math-k2`): the 16-knot instance under
-    Lean against the built (Ieee) one, within K2's contracts, timed in
-    turns."""
-    path, report = build_k2_other_math()
-    log(f"K2 16-knot instance under lean color math: {registers(report, K2_MAIN)} (built: "
-        f"{registers(build.ptxas_report('curve_kernel'), K2_MAIN)})")
-    lib, built = load_k2(path), load_k2(build.build("curve_kernel"))
-    img, mask, knots = curve_inputs(rng, BATCH, HEIGHT, WIDTH, (16, 16, 16), std=0.05)
-    img8 = (img * 255).to(torch.uint8)
-    for what, x, m in (("fp32 mask", img, mask), ("fp32 no mask", img, None),
-                       ("u8 wire", img8, None)):
-        k2_agree(f"K2 16 knots lean {what} against the built instance",
-                 k2_call(lib, x, m, *knots), k2_call(built, x, m, *knots))
-    prepared = k2_prepared(*knots)
-    for what, x in (("fp32 no mask", img), ("u8 wire", img8)):
-        b_ms, v_ms = in_turns(lambda: k2_launch(built, x, None, prepared),
-                              lambda: k2_launch(lib, x, None, prepared), ITERS)
-        log(f"K2 16 knots 1080p batch {BATCH} {what}: built (ieee) {b_ms[0]:.4f} / "
-            f"{b_ms[1]:.4f} ms, lean {v_ms[0]:.4f} / {v_ms[1]:.4f} ms  [{card}]")
 
 
 def sass_histogram(lib: Path, fragment: str) -> collections.Counter:
@@ -658,29 +649,29 @@ def sass_report(parent: bool) -> None:
     """Section 2: the SASS of K1's spatial fp32 composite instance at
     degrees 4 and 3 and of K2's instances, the parent's beside with
     `--parent`."""
-    rows = [(f"K1 degree {d} ({poly_tables.math_policy(d)})", tk.build_library(d), K1_MAIN,
-             poly_tables.launch_shape(d)[0]) for d in (4, 3)]
+    rows = [(f"K1 degree {d}", tk.build_library(d), K1_MAIN, poly_tables.launch_shape(d)[0])
+            for d in (4, 3)]
     k2 = build.build("curve_kernel")
-    rows += [("K2 16 knots (ieee)", k2, K2_MAIN, 1), ("K2 runtime-count (lean)", k2, K2_RUNTIME, 1)]
+    rows += [("K2 16 knots", k2, K2_MAIN, 1), ("K2 runtime-count", k2, K2_RUNTIME, 1)]
     if parent:
-        rows += [("parent K1 degree 3", parent_k1_path(3), K1_MAIN, 2),
+        rows += [("parent K1 degree 4", parent_k1_path(4), K1_MAIN, 2),
+                 ("parent K2 16 knots", PARENT_K2, K2_MAIN, 1),
                  ("parent K2 runtime-count", PARENT_K2, K2_RUNTIME, 1)]
     for what, lib, fragment, pixels in rows:
         log(f"SASS {what} ({fragment}): {sass_summary(sass_histogram(lib, fragment), pixels)}")
 
 
 def math_check(card: str) -> None:
-    """Section 4: the per-function check of both color math policies."""
+    """Section 4: the per-function check of the color math."""
     failed = []
     for name, (_, domain, bound, bitwise) in color_math.checks().items():
         r = color_math.check(name)
         torch.cuda.synchronize()
         where = "every float32" if domain is None else f"[{domain[0]}, {domain[1]}]"
-        log(f"color math {name} over {where} ({r['count']} inputs): lean max {r['lean_ulp']:.3f} "
-            f"ulp, {r['lean_abs']:.3e} abs (bound {bound} ulp); ieee max {r['ieee_ulp']:.3f} "
-            f"ulp, {r['ieee_abs']:.3e} abs; {r['differ']} inputs where lean and ieee differ  "
-            f"[{card}]")
-        if not r["lean_ulp"] <= bound or (bitwise and r["differ"]):
+        log(f"color math {name} over {where} ({r['count']} inputs): max {r['ulp']:.3f} ulp, "
+            f"{r['abs']:.3e} abs (bound {bound} ulp); IEEE form max {r['ieee_ulp']:.3f} ulp, "
+            f"{r['ieee_abs']:.3e} abs; {r['differ']} inputs where the two differ  [{card}]")
+        if not r["ulp"] <= bound or (bitwise and r["differ"]):
             failed.append(name)
     if failed:
         raise AssertionError(f"color math outside its record: {failed}")
@@ -820,10 +811,8 @@ def main(argv=None) -> int:
                         help="degrees whose K1 launch shapes to sweep (none: skip)")
     parser.add_argument("--other-order", type=int, nargs="*", default=[],
                         help="degrees at which to time K1 with its chain in the other order")
-    parser.add_argument("--other-math", type=int, nargs="*", default=[],
-                        help="degrees at which to time K1 under the other color math policy")
-    parser.add_argument("--other-math-k2", action="store_true",
-                        help="time K2's 16-knot instance under the lean color math")
+    parser.add_argument("--k2-chunks", type=int, nargs="*", default=[],
+                        help="runs of 256 pixels a block at which to time 16-knot K2")
     parser.add_argument("--math-check", action="store_true",
                         help="check each color math primitive over its float32 domain")
     parser.add_argument("--parent", type=Path, help="checkout to hold K1 and K2 against")
@@ -839,10 +828,10 @@ def main(argv=None) -> int:
     saved = tk.LAUNCHES, ck.LAUNCHES
     if args.parent:
         compare_parent(card, rng, args.parent)
-    if args.sweep or args.other_order or args.other_math:
-        k1_sweep(card, rng, args.sweep, args.other_order, args.other_math)
-    if args.other_math_k2:
-        k2_other_math(card, rng)
+    if args.sweep or args.other_order:
+        k1_sweep(card, rng, args.sweep, args.other_order)
+    if args.k2_chunks:
+        k2_chunks(card, rng, args.k2_chunks)
     if not args.no_sass:
         sass_report(parent=args.parent is not None)
     if not args.no_plain:

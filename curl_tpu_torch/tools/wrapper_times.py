@@ -3,9 +3,10 @@
 At 1080p batch 8 (or `--batch`/`--height`/`--width`): K1's composite
 (`fused_trispace_residual(..., composite=True)`) in fp32 and on the u8 wire
 at each `--degrees`, and K2 (`fused_curve_enhance`) at each `--knots` a
-curve, fp32 with no mask and with a mask. Each time is the mean of `--iters`
-calls between two CUDA events, after `--warmup` calls; `--rounds` of them.
-Inputs come from numpy's generator at `--seed`.
+curve, fp32 with no mask and with a mask, and on the u8 wire with no mask.
+Each time is the mean of `--iters` calls between two CUDA events, after
+`--warmup` calls; `--rounds` of them. Inputs come from numpy's generator at
+`--seed`.
 
 The script calls nothing of the port but those two wrappers and the
 builds of their libraries (`build.build`), so it times any checkout of the
@@ -17,7 +18,8 @@ two checkouts on one card, run them in turns in one call, A, B, B, A:
 
 Prints the card's name and power limit (from nvidia-smi), then one JSON
 line: {"label", "card", "k1": {degree: {"fp32": [ms...], "u8": [ms...]}},
-"k2": {knots: {"none": [ms...], "mask": [ms...]}}}. Needs a CUDA card.
+"k2": {knots: {"none": [ms...], "mask": [ms...], "u8": [ms...]}}}. Needs a
+CUDA card.
 """
 
 from __future__ import annotations
@@ -106,17 +108,16 @@ def main(argv=None) -> int:
                     x, *cs, degree=degree, composite=True), args.iters, args.warmup))
         result["k1"][str(degree)] = times
         print(f"K1 degree {degree}: {times}", flush=True)
-    del img8
     mask = torch.from_numpy((rng.uniform(size=shape + (1,)) < 0.9).astype(np.float32)).to(dev)
     for k in args.knots:
         # Knot logits as steep as 16-knot curves at std 0.05.
         std = 0.05 * 15 / (k - 1)
         knots = [torch.from_numpy(np.exp(rng.normal(scale=std, size=(args.batch, n, k)))
                                   .astype(np.float32)).to(dev) for n in (3, 3, 4)]
-        times = {"none": [], "mask": []}
+        times = {"none": [], "mask": [], "u8": []}
         for _ in range(args.rounds):
-            for name, m in (("none", None), ("mask", mask)):
-                times[name].append(mean_ms(lambda: ck.fused_curve_enhance(img, m, *knots),
+            for name, x, m in (("none", img, None), ("mask", img, mask), ("u8", img8, None)):
+                times[name].append(mean_ms(lambda: ck.fused_curve_enhance(x, m, *knots),
                                            args.iters, args.warmup))
         result["k2"][str(k)] = times
         print(f"K2 {k} knots: {times}", flush=True)

@@ -1,9 +1,10 @@
-"""CPU checks of the color math policies of K1 and K2 (`csrc/color_planes.cuh`).
+"""CPU checks of the color math of K1 and K2 (`csrc/color_planes.cuh`) and of
+K1's generated header.
 
 The kernels and their per-function check run only on the card
 (tests/test_torch_cuda.py, `tools/kernel_probe.py --math-check`). Here:
 
-- Lean's constant division, q = x * r, e = fma(-q, c, x), q = fma(e, r, q)
+- The constant division, q = x * r, e = fma(-q, c, x), q = fma(e, r, q)
   with r = 1/c in float32 (and x below 2^-64 scaled by 2^64 and back for a
   c that is no integer), is emulated with every product and sum exact
   (`fractions.Fraction`) and one rounding where the card rounds once, and
@@ -12,16 +13,14 @@ The kernels and their per-function check run only on the card
   color range, the whole normal range and the tiny range where the residual
   would underflow. The divisors are parsed from the header, so the two
   cannot drift apart, and are the plain version's constants.
-- `poly_tables.MATH` and the generated headers: degrees 1-3 take Lean, 4 and
-  up Ieee, and the headers of degrees 4-6 keep the text of the design
-  before the policies apart from the two lines that name the policy.
-- The parametrised header tests keep all their cases, the probe's
-  other-policy K1 headers differ from the built ones in the policy alone,
-  and K2's instances take their policies by knot count.
+- The header `poly_tables.header(D)` generates for K1, parsed: it declares
+  the degree's counts, launch shape, chains and fold and nothing else, and
+  its chains form every monomial once, each from one formed before.
+- The parametrised header tests keep all their cases.
 """
 
 import ast
-import hashlib
+import math
 import re
 from fractions import Fraction
 from pathlib import Path
@@ -30,9 +29,8 @@ import numpy as np
 import pytest
 
 from curl_tpu_torch.ops import color_planes as cp
+from curl_tpu_torch.ops import poly
 from curl_tpu_torch.ops.kernels import build, color_math, poly_tables
-from curl_tpu_torch.ops.kernels import curve_kernel as ck
-from curl_tpu_torch.tools import kernel_probe
 
 TESTS = Path(__file__).resolve().parent
 DIVISORS = color_math.divisors()
@@ -43,8 +41,8 @@ def _f(x) -> Fraction:
     return Fraction(float(x))
 
 
-def lean_div(x: np.float32, c: np.float32) -> np.float32:
-    """Lean::div<D> of color_planes.cuh on float32 x, with the card's
+def card_div(x: np.float32, c: np.float32) -> np.float32:
+    """curl_planes::div<D> of color_planes.cuh on float32 x, with the card's
     roundings: FMUL rounds x * r once, each FFMA rounds its exact a * b + c
     once, and the scalings by 2^64 and 2^-64 are exact for a normal
     quotient."""
@@ -89,19 +87,18 @@ def _samples(rng, c: np.float32, n: int = 120) -> np.ndarray:
 
 
 def test_divisors_are_every_division_the_conversions_make():
-    """The header's divisor list is complete: every `div<P, D>` of the
+    """The header's divisor list is complete: every `div<D>` of the
     conversions and kernels names a declared divisor, every divisor is used,
-    and outside the Ieee policy no conversion divides by a literal other
-    than 1 or 2 (exact in both policies)."""
+    and no conversion divides by a literal other than 1 or 2 (exact)."""
     sources = {p.name: p.read_text() for p in (color_math.HEADER,
                                                build.CSRC / "trispace_kernel.cu",
                                                build.CSRC / "curve_kernel.cu")}
     used = set()
     for text in sources.values():
-        used |= set(re.findall(r"div<\w+, (?:curl_planes::)?(By\w+)>", text))
+        used |= set(re.findall(r"div<(?:curl_planes::)?(By\w+)>", text))
     assert used == set(DIVISORS)
     header = sources[color_math.HEADER.name]
-    body = header[header.index("struct Lean"):]  # the conversions follow the policies
+    body = header[header.index("using AllDivisors"):]  # the primitives and conversions
     literal_divisions = re.findall(r"/ (\d+\.\d*f)", body)
     assert set(literal_divisions) <= {"1.0f", "2.0f"}, literal_divisions
     assert float(DIVISORS["By3Eps2"]) == float(F32(3.0 * (6.0 / 29.0) ** 2))
@@ -117,7 +114,7 @@ def test_lean_division_is_ieee_division(name):
         expect = ieee_div(x, c)
         if not _normal(expect):
             continue
-        got = lean_div(x, c)
+        got = card_div(x, c)
         assert np.array(got).view(np.uint32) == np.array(expect).view(np.uint32), (
             name, float(x).hex(), float(got), float(expect))
         checked += 1
@@ -143,7 +140,7 @@ def test_lean_u8_read_is_ieee_over_255():
     c = DIVISORS["By255"]
     for v in range(256):
         x = F32(v)
-        assert np.array(lean_div(x, c)).view(np.uint32) == np.array(F32(x) / c).view(np.uint32)
+        assert np.array(card_div(x, c)).view(np.uint32) == np.array(F32(x) / c).view(np.uint32)
 
 
 def test_unguarded_form_fails_below_the_guard():
@@ -157,7 +154,7 @@ def test_unguarded_form_fails_below_the_guard():
     e = color_math.round_f32(_f(x) - _f(q) * _f(c))
     unguarded = color_math.round_f32(_f(q) + _f(e) * _f(r))
     assert unguarded != ieee_div(x, c)
-    assert lean_div(x, c) == ieee_div(x, c)
+    assert card_div(x, c) == ieee_div(x, c)
 
 
 def test_round_f32_rounds_once_to_nearest_even():
@@ -170,44 +167,68 @@ def test_round_f32_rounds_once_to_nearest_even():
     assert np.isinf(color_math.round_f32(Fraction(2) ** 128))
 
 
+_DECLARATION = re.compile(
+    r"^(?:constexpr|__device__ const) \w+ (\w+)((?:\[\d+\])*) = (.*?);", re.M | re.S)
+_INCLUDE = re.compile(r"^#include (.+)$", re.M)
+
+
+def _declarations(text: str) -> dict:
+    """Every constant a generated header declares: name -> int, or nested
+    lists of ints for an array, checked against its declared extents."""
+    found = {}
+    for name, extents, value in _DECLARATION.findall(text):
+        literal = ast.literal_eval(value.replace("{", "[").replace("}", "]"))
+        dims = [int(n) for n in re.findall(r"\d+", extents)]
+        level = [literal]
+        for n in dims:
+            assert all(isinstance(x, list) and len(x) == n for x in level), (name, dims)
+            level = [y for x in level for y in x]
+        found[name] = literal
+    return found
+
+
+def _walk(chain, target, num_vars: int, degree: int) -> None:
+    """The (parent, var) steps, each forming monomial `target`, form every
+    monomial of degree <= `degree` in `num_vars` variables once, each from
+    one formed before (the constant first)."""
+    powers = poly.monomial_powers(degree, num_vars)
+    formed = {0}
+    for (parent, var), k in zip(chain, target):
+        assert parent in formed and k not in formed, (parent, var, k)
+        expect = list(powers[parent])
+        expect[var] += 1
+        assert tuple(expect) == powers[k]
+        formed.add(k)
+    assert formed == set(range(len(powers)))
+
+
 @pytest.mark.parametrize("degree", range(1, 9))
 def test_math_table_and_header(degree):
-    """Degrees 1-3 take Lean, 4 and up Ieee; the header names the policy as
-    `Math` and includes the header that defines it."""
-    policy = "lean" if degree <= 3 else "ieee"
-    assert poly_tables.math_policy(degree) == policy
+    """K1's header for `degree`, parsed: its counts and launch shape are the
+    degree's, its chains over (c1, c2, c3, x) and (c1, c2, c3) form every
+    monomial once in the order of `poly_tables.ORDER`, its fold maps each
+    (monomial, power of y) to the monomial of five variables, and it
+    declares nothing else and includes only <cstdint>: the color math is
+    the kernels' own, no header names it."""
     text = poly_tables.header(degree)
-    assert f"using Math = curl_planes::{policy.capitalize()};" in text
-    assert '#include "color_planes.cuh"' in text
-    other = kernel_probe.other_policy(degree)
-    assert other != policy
-    variant = kernel_probe.k1_variant_header(degree, *poly_tables.launch_shape(degree),
-                                             policy=other)
-    assert f"using Math = curl_planes::{other.capitalize()};" in variant
-    assert _without_policy(variant) == _without_policy(text)
-
-
-def _without_policy(text: str) -> str:
-    lines = text.splitlines(keepends=True)
-    return "".join(line for line in lines
-                   if "using Math" not in line and "poly_tables.MATH" not in line).replace(
-        '#include "color_planes.cuh"\n\n', "")
-
-
-# sha256 of `poly_tables.header(D)` as the design before the color math
-# policies generated it: degrees 4-6 keep their tables and constants byte
-# for byte, the policy's two lines and its include apart.
-PARENT_HEADERS = {
-    4: "57e532895f6c318227625c816c9632f909b6efafc2867e0d2ca06a169779341d",
-    5: "5eb4d863af90ae719db773cb16f5e572ec8349cd414741f0a328b0000e8f8de6",
-    6: "6153254792297f80e268ed6ff7219fbff7273c65c32eea7732ee62aa2d865a8f",
-}
-
-
-@pytest.mark.parametrize("degree", sorted(PARENT_HEADERS))
-def test_ieee_degrees_keep_their_header_text(degree):
-    text = _without_policy(poly_tables.header(degree))
-    assert hashlib.sha256(text.encode()).hexdigest() == PARENT_HEADERS[degree]
+    decl = _declarations(text)
+    assert set(decl) == {"kDegree", "kThreads", "kPix", "kMinBlocks", "kSpatialRaw", "kFolded",
+                         "kPlain", "kChain4", "kTarget4", "kChain3", "kTarget3", "kFoldY"}
+    assert _INCLUDE.findall(text) == ["<cstdint>"]
+    assert decl["kDegree"] == degree
+    assert (decl["kPix"], decl["kThreads"], decl["kMinBlocks"]) == poly_tables.launch_shape(degree)
+    assert decl["kSpatialRaw"] == math.comb(degree + 5, 5)
+    assert decl["kFolded"] == math.comb(degree + 4, 4)
+    assert decl["kPlain"] == math.comb(degree + 3, 3)
+    order = poly_tables.chain_order(degree)
+    for nv in (4, 3):
+        _walk(decl[f"kChain{nv}"], decl[f"kTarget{nv}"], nv, degree)
+        assert [tuple(s[:2]) for s in poly_tables.chain(degree, nv, order)] == [
+            tuple(s) for s in decl[f"kChain{nv}"]]
+    five = poly.monomial_powers(degree, 5)
+    for q, row in zip(poly.monomial_powers(degree, 4), decl["kFoldY"]):
+        for e, k in enumerate(row):
+            assert k == (five.index(q + (e,)) if sum(q) + e <= degree else -1)
 
 
 def _case_counts(path: Path, tests) -> dict:
@@ -236,8 +257,8 @@ def _case_counts(path: Path, tests) -> dict:
 
 
 def test_header_tests_keep_all_their_cases():
-    """The parametrised tests of K1's generated header keep every case they
-    had before the policies: chains at degrees 1-6 in both bases, the
+    """The parametrised tests of K1's generated header keep every case:
+    chains at degrees 1-6 in both bases, the
     depth-first plan at 1-8, the degree-4 literals, the fold at 1-6, the
     probe's constants at 4-6."""
     kernel = {"test_cuda_chain_tables_equal_monomial_chain": 12, "test_depth_first_plan": 16,
@@ -249,16 +270,9 @@ def test_header_tests_keep_all_their_cases():
     assert _case_counts(TESTS / "test_torch_kernel_redesign.py", redesign) == redesign
 
 
-def test_curve_instances_policies():
-    """K2: the 16-knot default keeps Ieee and every other count runs Lean."""
-    assert ck.math_policy((16, 16, 16)) == "ieee"
-    for counts in ((8, 12, 20), (96, 96, 96), (2, 96, 257), (16, 16, 17)):
-        assert ck.math_policy(counts) == "lean"
-
-
 def test_check_table_covers_every_primitive():
-    """The per-function check covers each primitive of the policies and each
-    divisor, with the primitives recorded as bitwise Ieee (divisions, recip,
+    """The per-function check covers each primitive and each divisor, with
+    the primitives recorded as bitwise the IEEE form (divisions, recip,
     sigmoid) bounded by the half ulp of a correctly rounded result or by
     expf's."""
     checks = color_math.checks()

@@ -18,6 +18,7 @@ version's, none more than 1 apart.
 """
 
 import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -162,15 +163,14 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
 
 
 @pytest.mark.parametrize("spatial", [True, False], ids=["spatial", "non_spatial"])
-@pytest.mark.parametrize("degree", [1, 2, 3, 5, 6, 7])
+@pytest.mark.parametrize("degree", [1, 2, 3, 4, 5, 6, 7])
 def test_kernel_matches_plain_at_every_degree(cuda, degree, spatial):
-    """K1 built for another degree (its own library), residual and
-    composite on a ragged 17x23 and a band of a taller image, bf16 and the
-    u8 wire, against the plain version at that degree: degrees 1-3 under the
-    lean color math, 5 and up under the IEEE one. Degree 7's spatial
-    instance stages 53,856 B of coefficients: past the 48 KB a kernel gets
-    without opting in."""
-    assert poly_tables.math_policy(degree) == ("lean" if degree <= 3 else "ieee")
+    """K1 at each degree (its own library), residual and composite on a
+    ragged 17x23 and a band of a taller image, bf16 and the u8 wire, against
+    the plain version at that degree, within K1's contracts: degree 4 is the
+    main path's, where the Lab matrix amplifies the sRGB powers' error most.
+    Degree 7's spatial instance stages 53,856 B of coefficients: past the
+    48 KB a kernel gets without opting in."""
     n = poly.num_monomials(degree, 3 + 2 * int(spatial))
     img, cs = _inputs(30 + degree, 2, 17, 23, n)
     kw = dict(degree=degree, spatial=spatial)
@@ -190,9 +190,9 @@ def test_kernel_matches_plain_at_every_degree(cuda, degree, spatial):
               _plain(img8, cs, composite=True, **kw))
 
 
-@pytest.mark.parametrize("degree", [1, 2, 3])
+@pytest.mark.parametrize("degree", [1, 2, 3, 4, 5, 6])
 def test_lean_band_equals_whole_slice(cuda, degree):
-    """The lean color math computes each pixel alone, the special-function
+    """The color math computes each pixel alone, the special-function
     unit's results included: a band is bitwise the whole image's rows."""
     img, cs = _inputs(70 + degree, 2, 64, 48, poly.num_monomials(degree, 5))
     whole = tk.fused_trispace_residual(img, *cs, degree=degree, composite=True)
@@ -203,13 +203,13 @@ def test_lean_band_equals_whole_slice(cuda, degree):
 
 @pytest.mark.parametrize("name", sorted(color_math.checks()))
 def test_color_math_primitive_within_its_record(cuda, name):
-    """Each primitive of the lean color math on every float32 of its
-    domain: within its recorded bound in ulps of float64, and bitwise the
-    IEEE form where it is recorded so (every constant division wherever the
-    quotient is normal, recip, sigmoid)."""
+    """Each primitive of the color math on every float32 of its domain:
+    within its recorded bound in ulps of float64, and bitwise the IEEE form
+    where it is recorded so (every constant division wherever the quotient
+    is normal, recip, sigmoid)."""
     r = color_math.check(name)
     assert r["count"] > 0
-    assert r["lean_ulp"] <= r["bound_ulp"], r
+    assert r["ulp"] <= r["bound_ulp"], r
     if r["bitwise"]:
         assert r["differ"] == 0, r
 
@@ -245,20 +245,25 @@ def _spills(report: str) -> dict:
     return found
 
 
-@pytest.mark.parametrize("degree", [5, 6])
+@pytest.mark.parametrize("degree", [4, 5, 6])
 def test_depth_first_instances_spill_no_more_than_degree_4(cuda, degree):
-    """From degree 5 on the chain runs depth first, so at most four
-    monomials a pixel are live and the instance fits degree 4's budget of
-    64 registers (32 warps an SM; its launch shape, 2 px in blocks of 1,024
-    threads, is `poly_tables.LAUNCH`'s): every instance's stack and spills
-    are no larger than degree 4's same instance."""
+    """From degree 4 on the chain runs depth first, so at most four
+    monomials a pixel are live and the instance fits the budget of 64
+    registers (32 warps an SM; its launch shape, 2 px in blocks of 512
+    threads, two blocks an SM, is `poly_tables.LAUNCH`'s) that degree 4's
+    graded chain overflowed: every instance's stack and spills are no
+    larger than degree 4's same instance in graded order, built as
+    `kernel_probe --other-order 4` builds it."""
+    from curl_tpu_torch.tools import kernel_probe
+
     assert poly_tables.chain_order(degree) == "depth_first"
     pixels, threads, blocks = poly_tables.launch_shape(degree)
     assert threads * blocks == 1024  # 65,536 registers an SM / 1,024 threads = 64
-    tk.build_library(4)
+    _, graded = kernel_probe.build_k1_variant(4, *poly_tables.launch_shape(4), order="graded")
     tk.build_library(degree)
-    base, got = _spills(tk.ptxas_report(4)), _spills(tk.ptxas_report(degree))
+    base, got = _spills(graded), _spills(tk.ptxas_report(degree))
     assert len(base) == 10 and got.keys() == base.keys()
+    assert max(sizes[0] for sizes in base.values()) > 0  # the graded chain's stack
     for entry, sizes in got.items():
         assert all(a <= b for a, b in zip(sizes, base[entry])), (entry, sizes, base[entry])
 
@@ -357,20 +362,19 @@ def test_curve_u8_wire_matches_plain(cuda, counts, masked):
     _u8_close(got, ck.fused_curve_enhance_reference(img, mask, *knots))
 
 
-@pytest.mark.parametrize("counts", [(66, 66, 66), (96, 96, 96), (257, 257, 257), (2, 96, 257),
-                                    (513, 2, 2), (8, 12, 20)],
-                         ids=["66", "96", "257", "mixed", "513", "8_12_20"])
+@pytest.mark.parametrize("counts", [(16, 16, 16), (66, 66, 66), (96, 96, 96), (257, 257, 257),
+                                    (2, 96, 257), (513, 2, 2), (8, 12, 20)],
+                         ids=["16", "66", "96", "257", "mixed", "513", "8_12_20"])
 def test_curve_kernel_at_many_knots(cuda, counts):
-    """Knot counts other than the default: the runtime-count instance,
-    under the lean color math, with its tables in dynamic shared memory
-    (61,480 B at 513 knots, past the 48 KB a kernel gets without opting in)
-    and several runs of 256 pixels a block past 17 knots, with and without
-    a mask, fp32, bf16 and the u8 wire. Knot logits
+    """The main path's 16 knots and the runtime-count instance's other
+    counts, with the tables in dynamic shared memory (61,480 B at 513
+    knots, past the 48 KB a kernel gets without opting in) and several runs
+    of 256 pixels a block past 17 knots, with and without a mask, fp32,
+    bf16 and the u8 wire, within K2's contracts. Knot logits
     of std 0.05 * 15 / n_seg keep the curves as steep as 16 knots at 0.05:
     iid knots at 0.05 make a 257-knot curve 17x as steep, and the ten chained
     curves then part fp32 from float64 in the plain version itself by up to
     6e-2 (tests/test_torch_poly_degrees.py)."""
-    assert ck.math_policy(counts) == "lean"
     img, mask, *knots = _curve_inputs(60, 2, 57, 71, counts, std=0.05 * 15 / (max(counts) - 1))
     for m in (mask, None):
         before = ck.LAUNCHES
@@ -385,6 +389,60 @@ def test_curve_kernel_at_many_knots(cuda, counts):
     img8 = (img * 255).to(torch.uint8)
     _u8_close(ck.fused_curve_enhance(img8, mask.to(torch.uint8), *knots),
               ck.fused_curve_enhance_reference(img8, mask.to(torch.uint8), *knots))
+
+
+def test_one_curve_call_is_one_kernel(cuda):
+    """The wrapper forms no slopes on the host: one `fused_curve_enhance`
+    call on the model's own fp32 contiguous knots runs one CUDA kernel, K2
+    (torch.profiler), at 16 knots and at a runtime count."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for counts in ((16, 16, 16), (2, 96, 257)):
+        img, mask, *knots = _curve_inputs(63, 2, 33, 31, counts)
+        ck.fused_curve_enhance(img, mask, *knots)  # built and loaded
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            ck.fused_curve_enhance(img, mask, *knots)
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert len(kernels) == 1 and "curve_enhance_kernel" in kernels[0], (counts, kernels)
+
+
+def _parent_checkout():
+    """A checkout of the version before K2 formed its slopes itself (its
+    curve_kernel.cu takes slopes and c0), unpacked where `kernel_probe
+    --parent` is pointed at one: build/parent under the repository."""
+    from curl_tpu_torch.tools import kernel_probe
+
+    root = Path(__file__).resolve().parents[1] / "build" / "parent"
+    if not (root / "curl_tpu_torch" / "csrc" / "curve_kernel.cu").exists():
+        pytest.skip(f"needs a checkout of the version whose K2 takes slopes at {root}")
+    if not kernel_probe.parent_k2_takes_slopes(root):
+        pytest.skip(f"the K2 at {root} takes the knots")
+    return root
+
+
+@pytest.mark.parametrize("counts", [(8, 12, 20), (96, 96, 96), (2, 96, 257)])
+def test_runtime_count_kernel_bitwise_the_prepared_slopes(cuda, counts):
+    """The prologue's slopes and c0 are `prepare_knots`': the runtime-count
+    instance on the knot stacks is bitwise the parent's kernel fed
+    `prepare_knots`' output through the probe's parent path, with and
+    without a mask and on the u8 wire."""
+    from curl_tpu_torch.tools import kernel_probe
+
+    parent = _parent_checkout()
+    lib = kernel_probe.PARENT_K2
+    if not lib.exists():
+        lib.parent.mkdir(parents=True, exist_ok=True)
+        csrc = parent / "curl_tpu_torch" / "csrc"
+        kernel_probe.nvcc(csrc / "curve_kernel.cu", csrc, lib)
+    p_k2 = kernel_probe.load_k2(lib, takes_slopes=True)
+    img, mask, *knots = _curve_inputs(64, 2, 57, 71, counts, std=0.05 * 15 / (max(counts) - 1))
+    img8, mask8 = (img * 255).to(torch.uint8), mask.to(torch.uint8)
+    for x, m in ((img, mask), (img, None), (img8, mask8)):
+        assert torch.equal(ck.fused_curve_enhance(x, m, *knots),
+                           kernel_probe.k2_call(p_k2, x, m, *knots)), (counts, x.dtype, m is None)
 
 
 def test_curve_kernel_past_the_grid_limit(cuda):

@@ -111,12 +111,17 @@ def test_bf16_input(rng):
     assert np.quantile(err, 0.999) <= 1e-2
 
 
-@pytest.mark.parametrize("counts", [(16, 16, 16), (8, 12, 20), (2, 65, 5)])
-def test_prepare_knots_equals_jax(rng, counts):
-    stacks = _stacks(rng, 2, counts, std=0.5)
+@pytest.mark.parametrize("counts,batch", [((16, 16, 16), 2), ((8, 12, 20), 2), ((2, 65, 5), 2),
+                                          ((16, 16, 16), 8), ((2, 96, 257), 3)],
+                         ids=["counts0", "counts1", "counts2", "16_batch8", "2_96_257"])
+def test_prepare_knots_equals_jax(rng, counts, batch):
+    """The plain version of the kernel's knot preparation, which its prologue
+    forms from the stacks with the same fp32 subtraction, against the JAX
+    kernel's: the main path's 16 knots at a serving batch of 8 too."""
+    stacks = _stacks(rng, batch, counts, std=0.5)
     js, jc = jck._prepare_knots(*map(jnp.asarray, stacks))
     ts, tc = ck.prepare_knots(*map(torch.from_numpy, stacks))
-    assert ts.shape == (2, 10, max(counts) - 1) and tc.shape == (2, 10, 1)
+    assert ts.shape == (batch, 10, max(counts) - 1) and tc.shape == (batch, 10, 1)
     np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
     np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
 
@@ -161,6 +166,27 @@ def test_wrapper_rejects_bad_shapes(rng):
         ck.fused_curve_enhance(img, torch.ones(1, 8, 8, 3), kl, kr, kh)
     with pytest.raises(ValueError, match="img must be"):
         ck.fused_curve_enhance(torch.zeros(1, 8, 8, 4), mask, kl, kr, kh)
+
+
+@pytest.mark.parametrize("case", ["batch", "one_knot", "curves", "dtype"])
+def test_wrapper_rejects_bad_knots(rng, case):
+    """The knot checks that run before any launch (`check_knots`, also in
+    the op's `_launch`, since the kernel reads the stacks by raw pointer):
+    a stack whose batch is not the image's, one with fewer than 2 knots, one
+    with the wrong number of curves and one of integer knots each raise on
+    the CPU, where nothing would launch anyway."""
+    img, mask = torch.zeros(2, 8, 8, 3), torch.ones(2, 8, 8, 1)
+    kl, kr, kh = map(torch.from_numpy, _stacks(rng, 2))
+    bad, error, match = {
+        "batch": ((kl[:1], kr, kh), ValueError, r"knots_lab must be \(2, 3, K\)"),
+        "one_knot": ((kl, kr[..., :1], kh), ValueError, r"knots_rgb .* K >= 2"),
+        "curves": ((kl, kr, kh[:, :3]), ValueError, r"knots_hsv must be \(2, 4, K\)"),
+        "dtype": ((kl, kr, kh.to(torch.int32)), TypeError, "knots_hsv must be floating point"),
+    }[case]
+    with pytest.raises(error, match=match):
+        ck.fused_curve_enhance(img, mask, *bad)
+    with pytest.raises(error, match=match):
+        ck.check_knots(img, *bad)
 
 
 def test_unsupported_device_rejected():

@@ -192,16 +192,16 @@ def test_cuda_chain_tables_equal_monomial_chain(name, num_vars, degree):
     """The chain tables of the header K1 is built with at each degree:
     kChain4 is the spatial chain over (c1, c2, c3, x) once y is folded into
     the coefficients; kChain3 the non-spatial one; kTarget4 / kTarget3 the
-    monomial each step forms. Up to degree 4 they are `monomial_chain` in
-    its graded order, step K forming monomial K + 1; from degree 5 on the
-    same steps in depth-first order."""
+    monomial each step forms. Up to degree 3 they are `monomial_chain` in
+    its graded order, step K forming monomial K + 1; from degree 4 on the
+    same steps in depth-first order (`poly_tables.ORDER`)."""
     text = poly_tables.header(degree)
     chain = _parse_chain(text, name)
     targets = _parse_values(text, name.replace("Chain", "Target"))
     steps = tuple((p, v, t) for (p, v), t in zip(chain, targets))
     graded = tuple((p, v, k + 1) for k, (p, v) in enumerate(tpoly.monomial_chain(degree,
                                                                                  num_vars)))
-    if degree <= 4:
+    if degree <= 3:
         assert chain == tpoly.monomial_chain(degree, num_vars)
         assert steps == graded
     else:
@@ -273,8 +273,10 @@ SHIPPED_CHAINS = {
 
 @pytest.mark.parametrize("name", sorted(SHIPPED_CHAINS))
 def test_generated_degree_4_chains_equal_the_shipped_literals(name):
-    """Degree 4's generated chain tables are the literals K1 shipped with,
-    as parsed tables and as text."""
-    text = poly_tables.header(4)
+    """Degree 4's generated chain tables in graded order are the literals K1
+    shipped with, as parsed tables and as text: the order K1 ran at degree 4
+    until the depth-first chain replaced it, and the probe's other order
+    there."""
+    text = poly_tables.render(4, "graded")
     assert _parse_chain(text, name) == _parse_chain(SHIPPED_CHAINS[name], name)
     assert SHIPPED_CHAINS[name] in text

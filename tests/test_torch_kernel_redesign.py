@@ -181,9 +181,9 @@ def _kernel_poly(planes: torch.Tensor, cf: torch.Tensor, degree: int, spatial: b
 
 
 @pytest.mark.parametrize("spatial", [True, False], ids=["spatial", "non_spatial"])
-@pytest.mark.parametrize("degree", [5, 6])
+@pytest.mark.parametrize("degree", [4, 5, 6])
 def test_depth_first_evaluation_equals_the_polynomial(degree, spatial):
-    """From degree 5 on K1 walks its chain depth first. Walking the
+    """From degree 4 on K1 walks its chain depth first. Walking the
     header's parsed tables in their order (after the y-fold when spatial)
     equals the polynomial to 1e-12 in float64; in float32 it lies no
     further from the float64 value (the L2 distance over all outputs) than
@@ -382,8 +382,8 @@ def test_probe_rewrites_the_built_k1_constants(degree):
     built = poly_tables.launch_shape(degree)
     assert found == dict(zip(("kPix", "kThreads", "kMinBlocks"), built))
     # 64 registers, 32 warps an SM at every degree since the chain runs
-    # depth first from degree 5 on; blocks of 1,024 threads from there.
-    assert built == ((2, 512, 2) if degree == 4 else (2, 1024, 1))
+    # depth first from degree 4 on, in blocks of 512 threads.
+    assert built == (2, 512, 2)
     variants = kernel_probe.K1_VARIANTS[degree]
     assert variants and built not in variants
     assert "kPix = 3" in kernel_probe.k1_variant_header(degree, 3, 128, 1)
