@@ -184,6 +184,16 @@ Phases, each of which fails the run:
          coefficients or the knot stacks (`k1_bare_ms_by_degree`,
          `k2_bare_ms_by_knots`, ...), the kernel alone; K2's wrapper less
          its bare launch (`k2_wrapper_gap_ms_by_knots`).
+ 16. bench_torch.py, the port's benchmark, run by a user's command in a child
+     process from this checkout, one after another: the default headline,
+     --dtype uint8, --latency --batch 8, --ingest uint8, --train and --eval.
+     Each exits 0; its last line parses, is a live measurement with a
+     positive value, and names this card, its power limit (nvidia-smi) and
+     this checkout's HEAD (null on both sides outside a git checkout); it
+     counted K1 launches, no K2, and K3 only in --train. The headline's
+     device ceiling (a chained replay that bench_torch.py times) lies within
+     10% of one this phase times itself, as phase 11a does, at the
+     headline's wire (bf16 target, u8 output) and batch (32).
 
 The kernels' record carries, besides each kernel's main-path launches and
 times, the launches of phases 12 and 13 and the backbone + head replay times
@@ -192,6 +202,7 @@ times at 512x512 batch 8 (`ms_512`, `plain_acc_ms_512`, `plain_matmul_ms_512`),
 and phase 15's numbers by degree and by knot count (`k1_ms_by_degree`,
 `k1_bare_ms_by_degree`, `k1_bound_ms_by_degree`, `k2_ms_by_knots`,
 `k2_bare_ms_by_knots`, `k2_wrapper_gap_ms_by_knots`, ...).
+Beside the kernels, the record's `bench_torch` holds phase 16's numbers.
 The last two lines
 before the final one are the kernels' JSON record and the card's
 `name, power.limit`; the final line is
@@ -327,6 +338,23 @@ DEGREE_BATCH = 2
 MANY_KNOTS = (66, 96, 257)
 MIXED_KNOTS = (2, 96, 257)
 KNOTS_96 = dict(num_lab_points=288, num_rgb_points=288, num_hsv_points=384)
+
+# Phase 16: bench_torch.py, the port's benchmark, as a user runs it: one child
+# process a mode, from this checkout. The headline's device ceiling is held
+# to a chained replay that this phase times itself at the headline's wire and
+# batch, as phase 11a times its own (11a's is the u8 wire at batch 8, another
+# program).
+BENCH_MODES = (
+    ("headline", ()),
+    ("uint8", ("--dtype", "uint8")),
+    ("latency", ("--latency", "--batch", "8")),
+    ("ingest", ("--ingest", "uint8")),
+    ("train", ("--train",)),
+    ("eval", ("--eval",)),
+)
+BENCH_BATCH = 32  # bench_torch.py's --batch default
+CEILING_TOL = 0.10
+BENCH_TIMEOUT = 600.0
 
 
 def knot_std(counts, std16: float) -> float:
@@ -629,32 +657,13 @@ def serving_batch(rng, torch):
     return tuple(torch.from_numpy(a).pin_memory() for a in (small, mask, target))
 
 
-def calibrate_batch_norm(model, forward) -> None:
-    """Set every BN layer's running statistics to those of one batch (what
-    `forward()` runs), as a trained network's would normalize its
-    activations. With random weights and the initial statistics (mean 0,
-    var 1) the activations vanish over rw_t's 40 blocks and every
-    coefficient or knot comes out ~0, which would leave the kernels' work
-    untested."""
-    import torch
-
-    norms = [m for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
-    for m in norms:
-        m.reset_running_stats()
-        m.momentum = None  # cumulative average: one batch sets the statistics
-    model.train()
-    with torch.no_grad():
-        forward()
-    model.eval()
-    for m in norms:
-        m.momentum = 0.1
-
-
 def calibrate_curve_model(curve_model, small, counts=(16, 16, 16)) -> None:
     """BN statistics from the predict view `small`, then the knot logits
     rescaled to KNOT_STD when they fall outside KNOT_STD_RANGE (both at the
     steepness of 16 knots, `knot_std`, for other knot counts)."""
     import torch
+
+    from curl_tpu_torch.models.backbone import calibrate_batch_norm
 
     lo, hi, target = (knot_std(counts, s) for s in (*KNOT_STD_RANGE, KNOT_STD))
     calibrate_batch_norm(curve_model, lambda: curve_model.predict_knots(small))
@@ -1163,6 +1172,7 @@ def serving_models(torch, dev, rng):
     """Phase 11's two models at full width, as phases 4 and 7 build them:
     rw_t from seed 0 with BN statistics from one batch, the curve model's
     knot logits rescaled into range. Returns (polynomial, curve)."""
+    from curl_tpu_torch.models.backbone import calibrate_batch_norm
     from curl_tpu_torch.models.curl_curve import CurlCurveNet
     from curl_tpu_torch.models.trispace import TriSpacePolyNet
 
@@ -1817,6 +1827,7 @@ def bf16_serving(torch, dev, rng, counters, card) -> dict:
     """Phase 13a: the polynomial model at fp32 and bf16 from the same
     calibrated weights."""
     from curl_tpu_torch.infer.engine import Enhancer
+    from curl_tpu_torch.models.backbone import calibrate_batch_norm
     from curl_tpu_torch.models.trispace import TriSpacePolyNet
 
     batches = [serving_batch(rng, torch) for _ in range(3)]
@@ -2137,6 +2148,7 @@ def other_degrees_and_knots(torch, dev, rng, counters, train_counters, batch, ca
     """Phase 15. Returns the numbers the kernels' record carries."""
     from curl_tpu_torch.config import Config
     from curl_tpu_torch.infer.engine import Enhancer
+    from curl_tpu_torch.models.backbone import calibrate_batch_norm
     from curl_tpu_torch.models.curl_curve import CurlCurveNet
     from curl_tpu_torch.models.trispace import TriSpacePolyNet
     from curl_tpu_torch.ops import poly, wire
@@ -2273,6 +2285,97 @@ def other_degrees_and_knots(torch, dev, rng, counters, train_counters, batch, ca
     return out
 
 
+def git_head(root: Path):
+    """HEAD of the checkout whose root is `root`, else None."""
+    try:
+        proc = subprocess.run(["git", "rev-parse", "--show-toplevel", "HEAD"], cwd=root,
+                              capture_output=True, text=True, timeout=30)
+    except (OSError, subprocess.TimeoutExpired):
+        return None
+    out = proc.stdout.split()
+    if proc.returncode != 0 or len(out) != 2 or Path(out[0]).resolve() != root.resolve():
+        return None
+    return out[1]
+
+
+def headline_ceiling(torch, dev) -> float:
+    """img/s of the device ceiling of bench_torch.py's headline workload,
+    timed as phase 11a times a chained replay: rw_t from seed 0 with BN
+    statistics from one batch, BENCH_BATCH images of a 320^2 predict view
+    and a 1080p bf16 target with the u8 output, CHAIN batches a CUDA graph,
+    the replay's device time a batch from CUDA events."""
+    from curl_tpu_torch.infer.engine import Enhancer
+    from curl_tpu_torch.models.backbone import calibrate_batch_norm
+    from curl_tpu_torch.models.trispace import TriSpacePolyNet
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    small = torch.rand(BENCH_BATCH, PREDICT, PREDICT, 3, generator=gen, device=dev)
+    mask = torch.ones(BENCH_BATCH, PREDICT, PREDICT, 1, device=dev)
+    target = torch.rand(BENCH_BATCH, HEIGHT, WIDTH, 3, generator=gen, device=dev)
+    model = TriSpacePolyNet(backbone=BACKBONE, device=dev,
+                            generator=torch.Generator().manual_seed(SEED))
+    calibrate_batch_norm(model, lambda: model.generate_coefficients(small, mask))
+    enh = Enhancer(model, backbone_size=PREDICT, out_u8=True)
+    enh.enhance_chained(*(torch.stack([x] * CHAIN) for x in (small, mask,
+                                                              target.to(torch.bfloat16))))
+    (graph,) = enh._chained.values()
+    return BENCH_BATCH / (cuda_ms(graph.graph.replay, 5) / CHAIN) * 1e3
+
+
+def bench_modes(torch, dev, card: str, kind: str, ceiling_11a: float) -> dict:
+    """Phase 16: each of BENCH_MODES through `python3 bench_torch.py` in a
+    child process. Each must exit 0 with a last line that parses, is live,
+    has a positive value, names this card, its power limit and this
+    checkout's HEAD, and counts K1 launches and no K2 (K3 only in --train);
+    the headline's device ceiling must lie within CEILING_TOL of this
+    phase's own replay (`headline_ceiling`). Returns the lines' numbers."""
+    root = Path(__file__).resolve().parent
+    head = git_head(root)
+    results, headline = {}, None
+    for name, args in BENCH_MODES:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, str(root / "bench_torch.py"), *args], cwd=root,
+                              capture_output=True, text=True, timeout=BENCH_TIMEOUT)
+        seconds = time.perf_counter() - t0
+        command = "bench_torch.py " + (" ".join(args) or "(defaults)")
+        if proc.returncode != 0:
+            raise AssertionError(f"{command} exited {proc.returncode}: {proc.stderr[-3000:]}")
+        lines = proc.stdout.strip().splitlines()
+        line = json.loads(lines[-1])
+        n = line["kernel_launches"]
+        log(f"  {command}: {line['metric']} {line['value']} {line['unit']}, phase "
+            f"{line['phase']}, batch {line['batch']}, wire {line['wire']}, launches {n}, "
+            f"{len(lines)} line(s), {seconds:.1f} s  [{line['device']}; {line['power_limit']}]")
+        if line.get("live_measurement") is not True or not line["value"] > 0:
+            raise AssertionError(f"{command}: not a live positive measurement")
+        if (line["device"], line["power_limit"], line["git_commit"]) != (kind, card, head):
+            raise AssertionError(f"{command}: provenance {line['device']!r}, "
+                                 f"{line['power_limit']!r}, {line['git_commit']!r}; expected "
+                                 f"{kind!r}, {card!r}, {head!r}")
+        if n["K1"] < 1 or n["K2"] != 0 or (n["K3"] > 0) != (name == "train"):
+            raise AssertionError(f"{command}: expected K1 launches, no K2, and K3 only in "
+                                 f"training; counted {n}")
+        results[name] = {k: line[k] for k in ("metric", "value", "phase", "batch", "wire")}
+        results[name].update(launches=n, seconds=seconds)
+        if name == "headline":
+            headline = line
+    if "device_ceiling_img_per_s" not in headline:
+        raise AssertionError("the headline's last line carries no device ceiling")
+    torch.cuda.empty_cache()
+    own = headline_ceiling(torch, dev)
+    got = headline["device_ceiling_img_per_s"]
+    log(f"  headline device ceiling {got} img/s ({headline['pct_of_device_ceiling']}% of it "
+        f"reached) against this phase's own replay {own:.3f} img/s ({100 * (got / own - 1):+.1f}%); "
+        f"phase 11a's u8-wire batch-{BATCH} replay {ceiling_11a:.3f} img/s  [{card}]")
+    if abs(got - own) > CEILING_TOL * own:
+        raise AssertionError(f"the headline's ceiling is more than {CEILING_TOL:.0%} from "
+                             "this phase's replay")
+    results["ceiling"] = {"bench_img_per_s": got, "replay_img_per_s": own,
+                          "replay_11a_img_per_s": ceiling_11a,
+                          "pct_of_device_ceiling": headline["pct_of_device_ceiling"]}
+    return results
+
+
 def by_key(values: dict) -> dict:
     """A dict keyed by ints or tuples of ints, with JSON keys ("96",
     "2/96/257")."""
@@ -2300,6 +2403,7 @@ def main() -> int:
         return 2
     try:
         from curl_tpu_torch.infer.engine import Enhancer
+        from curl_tpu_torch.models.backbone import calibrate_batch_norm
         from curl_tpu_torch.models.curl_curve import CurlCurveNet
         from curl_tpu_torch.models.trispace import TriSpacePolyNet
         from curl_tpu_torch.ops import wire
@@ -2617,6 +2721,12 @@ def main() -> int:
                                     card, degree_builds)
     log(f"  phase 15 took {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
+    log("phase 16: bench_torch.py, the port's benchmark, in each of its modes")
+    t0 = time.perf_counter()
+    bench = bench_modes(torch, dev, card, kind,
+                        BATCH / chained["trispace"]["device_ms"] * 1e3)
+    log(f"  phase 16 took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
     # K3 runs only on the training paths: its launches are theirs.
     clip_launches = sum(n["K3"] for _, n in train_times.values())
 
@@ -2702,7 +2812,7 @@ def main() -> int:
             "train_launches": clip_launches,
             "train_ms": clip_record["ms"],
         },
-    ]}
+    ], "bench_torch": bench}
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -340,3 +340,23 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
                 m.bias.zero_()
         elif isinstance(m, nn.BatchNorm2d):
             m.reset_parameters()
+
+
+def calibrate_batch_norm(model: nn.Module, forward) -> None:
+    """Set every BN layer's running statistics to those of one batch (what
+    `forward()` runs), as a trained network's would normalize its
+    activations, and leave `model` in eval mode. With random weights and the
+    initial statistics (mean 0, var 1) the activations vanish over rw_t's 40
+    blocks and every coefficient or knot comes out ~0, which would leave the
+    kernels' per-pixel work untested."""
+    norms = [m for m in model.modules() if isinstance(m, nn.BatchNorm2d)]
+    momenta = [m.momentum for m in norms]
+    for m in norms:
+        m.reset_running_stats()
+        m.momentum = None  # cumulative average: one batch sets the statistics
+    model.train()
+    with torch.no_grad():
+        forward()
+    model.eval()
+    for m, momentum in zip(norms, momenta):
+        m.momentum = momentum

@@ -37,8 +37,11 @@ from curl_tpu_torch.train.state import TrainState
 
 def _normalize_batch(inp: Tensor, out: Tensor, mask: Tensor) -> tuple[Tensor, Tensor, Tensor]:
     """The u8 wire on the device: images 0-255 -> [0,1] fp32, the {0,1}
-    mask cast without scaling. Float inputs pass through."""
-    return wire.norm_u8(inp), wire.norm_u8(out), wire.norm_u8(mask, scale=False)
+    mask cast without scaling. Float inputs pass through, made contiguous:
+    the augmentation returns channel slices of its stacked batch, and the
+    kernels take contiguous NHWC images."""
+    return (wire.norm_u8(inp).contiguous(), wire.norm_u8(out).contiguous(),
+            wire.norm_u8(mask, scale=False).contiguous())
 
 
 def _split_model_output(out) -> tuple[Tensor, Optional[Tensor]]:

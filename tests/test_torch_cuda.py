@@ -528,10 +528,11 @@ def test_curve_enhancer_cuda_matches_cpu(cuda):
     assert int(diff.max()) <= 1 and float((diff == 0).float().mean()) >= 0.999
 
 
-def _train_step_pair(model_cls, impl_attr, seed=0):
-    """One train step (augment off) of a tiny model through the kernel and,
-    from a copy with the same weights, through the plain path, on the same
-    u8 batch. Returns (losses, last-layer gradients, BN buffers, launches)."""
+def _train_step_pair(model_cls, impl_attr, seed=0, float_batch=False, augment=False):
+    """One train step of a tiny model through the kernel and, from a copy
+    with the same weights, through the plain path, on the same u8 batch (or,
+    with `float_batch`, its fp32 normalization) and the same augmentation
+    draws. Returns (losses, last-layer gradients, BN buffers, launches)."""
     import copy
 
     from curl_tpu_torch.models import backbone as bb
@@ -544,18 +545,20 @@ def _train_step_pair(model_cls, impl_attr, seed=0):
         "output_img": torch.from_numpy(rng.integers(0, 256, (4, 64, 64, 3), dtype=np.uint8)),
         "mask": torch.from_numpy((rng.uniform(size=(4, 64, 64, 1)) < 0.9).astype(np.uint8)),
     }
+    if float_batch:
+        batch = {k: v.float() / (1.0 if k == "mask" else 255.0) for k, v in batch.items()}
     batch = {k: v.cuda() for k, v in batch.items()}
     kernel_model = model_cls(backbone=bb.TINY, device="cuda",
                              generator=torch.Generator().manual_seed(seed))
     plain_model = copy.deepcopy(kernel_model)
     setattr(plain_model, impl_attr, "torch")
-    step = steps_lib.make_train_step(augment=False)
+    step = steps_lib.make_train_step(augment=augment)
     out = []
     for model in (kernel_model, plain_model):
         opt = state_lib.make_optimizer(model.parameters(), state_lib.onecycle_schedule(10, 1))
         state = state_lib.TrainState(model, opt)
         tk.LAUNCHES = ck.LAUNCHES = 0
-        loss = step(state, batch, torch.Generator(device="cuda"))["loss"]
+        loss = step(state, batch, torch.Generator(device="cuda").manual_seed(seed))["loss"]
         torch.cuda.synchronize()
         head = [p for p in model.parameters() if p.grad is not None][-2]
         buffers = {k: v.clone() for k, v in model.state_dict().items() if "running" in k}
@@ -576,6 +579,24 @@ def test_training_step_kernel_matches_plain(cuda, kind):
     assert np.isfinite(kl) and abs(kl - pl) <= 1e-4 * abs(pl)
     rel = float((kg - pg).norm() / pg.norm())
     assert rel <= 1e-3, rel
+    for k in kb:
+        assert torch.equal(kb[k], pb[k]), k
+
+
+@pytest.mark.parametrize("kind", ["trispace", "curve"])
+def test_training_step_takes_an_augmented_float_batch(cuda, kind):
+    """An fp32 batch with augment on: the augmentation's channel slices of
+    its stacked batch are views, which the kernels refuse unless the step
+    makes them contiguous (both kernels raised here before it did)."""
+    from curl_tpu_torch.models import CurlCurveNet, TriSpacePolyNet
+
+    model_cls, attr, launches = ((TriSpacePolyNet, "residual_impl", (1, 0)) if kind == "trispace"
+                                 else (CurlCurveNet, "curve_impl", (0, 1)))
+    (kl, kg, kb, kn), (pl, pg, pb, pn) = _train_step_pair(model_cls, attr, float_batch=True,
+                                                          augment=True)
+    assert kn == launches and pn == (0, 0)
+    assert np.isfinite(kl) and abs(kl - pl) <= 1e-4 * abs(pl)
+    assert float((kg - pg).norm() / pg.norm()) <= 1e-3
     for k in kb:
         assert torch.equal(kb[k], pb[k]), k
 

@@ -1,6 +1,7 @@
-"""Import hygiene of the port: `curl_tpu_torch`, `chip_smoke.py` and
-`__graft_entry_torch__.py` import torch and never jax, flax or the JAX package (only the port's tests import
-both); the TFLite exports load TensorFlow only when they run."""
+"""Import hygiene of the port: `curl_tpu_torch`, `chip_smoke.py`,
+`bench_torch.py` and `__graft_entry_torch__.py` import torch and never jax,
+flax or the JAX package (only the port's tests import both); the TFLite
+exports load TensorFlow only when they run."""
 
 import re
 import subprocess
@@ -108,7 +109,7 @@ def test_importing_the_exports_loads_no_tensorflow():
     assert proc.stdout.strip() == "", f"loaded at import: {proc.stdout}"
 
 
-_SOURCES = sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py",
+_SOURCES = sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "bench_torch.py",
                                              REPO / "__graft_entry_torch__.py"]
 
 

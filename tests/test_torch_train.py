@@ -284,6 +284,33 @@ def test_stack_and_summarize_eval_totals():
     assert tsteps.summarize_eval(sums) == {"loss": 0.5, "psnr": 30.0, "msssim": 0.375}
 
 
+def test_augmented_float_batch_reaches_the_model_contiguous(rng):
+    """The kernels take contiguous NHWC images, and the augmentation returns
+    channel slices of its stacked batch: a train step on an fp32 batch with
+    augment on must hand the model contiguous tensors (a float batch raised
+    in both kernels on the card before)."""
+    model = TriSpacePolyNet(backbone="tiny", device="cpu",
+                            generator=torch.Generator().manual_seed(0))
+    seen = []
+    forward = model.forward
+
+    def spy(img, mask, *args, **kwargs):
+        seen.append((img.is_contiguous(), mask.is_contiguous()))
+        return forward(img, mask, *args, **kwargs)
+
+    model.forward = spy
+    batch = {
+        "input_img": torch.from_numpy(rng.uniform(0, 1, (2, S, S, 3)).astype(np.float32)),
+        "output_img": torch.from_numpy(rng.uniform(0, 1, (2, S, S, 3)).astype(np.float32)),
+        "mask": torch.ones(2, S, S, 1),
+    }
+    state = tstate.TrainState(model, tstate.make_optimizer(
+        model.parameters(), tstate.onecycle_schedule(*SCHEDULE)))
+    loss = tsteps.make_train_step(augment=True)(state, batch, torch.Generator().manual_seed(0))
+    assert np.isfinite(float(loss["loss"]))
+    assert seen == [(True, True)]
+
+
 def test_polyreg_forward_matches_jax(rng):
     net = jmodels.PolyRegNet(backbone="tiny")
     img = rng.uniform(0, 1, (2, S, S, 3)).astype(np.float32)
