@@ -194,6 +194,24 @@ Phases, each of which fails the run:
      device ceiling (a chained replay that bench_torch.py times) lies within
      10% of one this phase times itself, as phase 11a does, at the
      headline's wire (bf16 target, u8 output) and batch (32).
+ 17. The JAX system's tools in their port (`python -m
+     curl_tpu_torch.tools.<name>`), each held to its own check, their
+     numbers printed beside the card's name and power limit:
+     (a) curve_bench: `check` at 1080p (K2 against the plain chain at 48 /
+         48 / 64 knots a curve, knot logits of std 0.1: p99.9 < 2e-3 and
+         max < 5e-2, the JAX tool's criteria); `kernel` at batch 8 (K2
+         launches and no K1), and the plain chain's; `e2e` at batch 8, 12
+         iterations (13 K2 launches with the warm-up).
+     (b) infer_8k_probe --repeat 2 (4K and 8K, band height as the engine
+         picks it); the 8K output within 2e-4 of the same frame applied in
+         bands of 1,080 rows.
+     (c) fullres_backward_probe --batch 2 --iters 3: both losses finite and
+         within 1e-4 relative; 4 K1 launches and K3's.
+     (d) poly_grad_probe: `check` ok, then `fwd` and `fwdbwd` of both forms.
+     (e) serve_sweep --quick in a child process: two rows, no `error`.
+     (f) scale_smoke --n 64 --epochs 1 (the best checkpoint's validation
+         PSNR finite) and adobe5k_run --selftest in a child process (its
+         evidence record's valid and test PSNRs finite).
 
 The kernels' record carries, besides each kernel's main-path launches and
 times, the launches of phases 12 and 13 and the backbone + head replay times
@@ -202,7 +220,8 @@ times at 512x512 batch 8 (`ms_512`, `plain_acc_ms_512`, `plain_matmul_ms_512`),
 and phase 15's numbers by degree and by knot count (`k1_ms_by_degree`,
 `k1_bare_ms_by_degree`, `k1_bound_ms_by_degree`, `k2_ms_by_knots`,
 `k2_bare_ms_by_knots`, `k2_wrapper_gap_ms_by_knots`, ...).
-Beside the kernels, the record's `bench_torch` holds phase 16's numbers.
+Beside the kernels, the record's `bench_torch` holds phase 16's numbers and
+its `tools` phase 17's.
 The last two lines
 before the final one are the kernels' JSON record and the card's
 `name, power.limit`; the final line is
@@ -216,6 +235,7 @@ from __future__ import annotations
 import concurrent.futures
 import copy
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -2376,6 +2396,120 @@ def bench_modes(torch, dev, card: str, kind: str, ceiling_11a: float) -> dict:
     return results
 
 
+def ported_tools(torch, card: str, counters: dict) -> dict:
+    """Phase 17: each of the JAX system's tools in its port
+    (`curl_tpu_torch/tools/`), as a user runs it, held to its own check;
+    `counters` holds K1, K2 and K3. Returns each tool's numbers."""
+    from curl_tpu_torch.tools import (curve_bench, fullres_backward_probe, infer_8k_probe,
+                                      poly_grad_probe, scale_smoke)
+
+    out = {}
+    log("  (a) curve_bench")
+    check = curve_bench.main(["--case", "check"])
+    if not check["ok"]:
+        raise AssertionError(f"curve_bench check: K2 against the plain chain {check}")
+    kernel, n = counted(counters, lambda: curve_bench.main(["--case", "kernel", "--batch",
+                                                           str(BATCH)]))
+    if n["K2"] < 1 or n["K1"] != 0:
+        raise AssertionError(f"curve_bench kernel: expected K2 launches and no K1, counted {n}")
+    plain = curve_bench.main(["--case", "kernel", "--batch", str(BATCH), "--impl", "torch",
+                              "--iters", "3", "--reps", "2"])
+    e2e, e2e_n = counted(counters, lambda: curve_bench.main(["--case", "e2e", "--batch",
+                                                             str(BATCH), "--iters", "12"]))
+    if e2e_n["K2"] != 13 or e2e_n["K1"] != 0:
+        raise AssertionError(f"curve_bench e2e: expected 13 K2 launches, counted {e2e_n}")
+    out["curve_bench"] = {"check": check, "kernel": kernel, "plain": plain, "e2e": e2e,
+                          "kernel_launches": n, "e2e_launches": e2e_n}
+    log(f"  curve_bench check 1080p: {check}; kernel batch {BATCH}: "
+        f"{kernel['per_image_ms']:.4f} ms an image ({n}), plain chain "
+        f"{plain['per_image_ms']:.3f} ms an image; e2e rw_t {PREDICT}^2 -> 1080p batch {BATCH}: "
+        f"{e2e['ms_per_batch']} ms a batch, {e2e['images_per_sec']} img/s  [{card}]")
+    torch.cuda.empty_cache()
+
+    log("  (b) infer_8k_probe --repeat 2")
+    report, n = counted(counters, lambda: infer_8k_probe.main(["--repeat", "2"]))
+    enh, inputs = infer_8k_probe.setup(4320, 7680)
+    with torch.inference_mode():
+        whole = enh.enhance_image(*inputs)
+        banded = enh.enhance_image(*inputs, tile_rows=1080)
+    band_err = float((whole - banded).abs().max())
+    del enh, inputs, whole, banded
+    out["infer_8k_probe"] = {**report, "launches": n, "band_1080_max_abs": band_err}
+    log(f"  infer_8k_probe: {report}; launches {n}; 8K whole against bands of 1,080 rows: "
+        f"{band_err:.3e}  [{card}]")
+    if n["K1"] < 1 or band_err > FP32_TOL:
+        raise AssertionError(f"infer_8k_probe: launches {n}, bands off by {band_err}")
+    torch.cuda.empty_cache()
+
+    log("  (c) fullres_backward_probe --batch 2 --iters 3")
+    fullres, n = counted(counters, lambda: fullres_backward_probe.main(
+        ["--batch", "2", "--iters", "3"]))
+    losses = [r["loss"] for r in fullres["runs"]]
+    out["fullres_backward_probe"] = {**fullres, "launches": n}
+    log(f"  fullres_backward_probe: torch {fullres['torch_ms_per_step']} ms a step (peak "
+        f"{fullres['runs'][0]['peak_gib']} GiB), cuda {fullres['cuda_ms_per_step']} ms (peak "
+        f"{fullres['runs'][1]['peak_gib']} GiB), cuda_over_torch {fullres['cuda_over_torch']}; "
+        f"losses {losses}; launches {n}  [{card}]")
+    if not (all(np.isfinite(losses)) and abs(losses[1] - losses[0]) <= 1e-4 * abs(losses[0])):
+        raise AssertionError(f"fullres_backward_probe: losses {losses}")
+    if n["K1"] != 4 or n["K3"] < 1:
+        raise AssertionError(f"fullres_backward_probe: expected 4 K1 launches (a warm-up and 3 "
+                             f"steps of the cuda run) and K3's, counted {n}")
+    torch.cuda.empty_cache()
+
+    log("  (d) poly_grad_probe")
+    grads = {"check": poly_grad_probe.main(["--case", "check"])}
+    if not grads["check"]["ok"]:
+        raise AssertionError(f"poly_grad_probe check: {grads['check']}")
+    for form in ("acc", "matmul"):
+        for case in ("fwd", "fwdbwd"):
+            grads[f"{form}_{case}"] = poly_grad_probe.main(["--form", form, "--case", case])
+    out["poly_grad_probe"] = grads
+    log("  poly_grad_probe, batch 8 of 256^2: " + ", ".join(
+        f"{k} {v['ms_per_step']} ms" for k, v in grads.items() if k != "check")
+        + f"; check {grads['check']}  [{card}]")
+    torch.cuda.empty_cache()
+
+    root = Path(__file__).resolve().parent
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_tools_"))
+    try:
+        log("  (e) serve_sweep --quick")
+        sweep_out = tmp / "serve_sweep.jsonl"
+        proc = subprocess.run([sys.executable, "-m", "curl_tpu_torch.tools.serve_sweep",
+                               "--quick", "--out", str(sweep_out)], cwd=root,
+                              capture_output=True, text=True, timeout=BENCH_TIMEOUT)
+        rows = [json.loads(line) for line in sweep_out.read_text().splitlines()]
+        out["serve_sweep"] = rows
+        for row in rows:
+            log(f"  serve_sweep: {row}  [{card}]")
+        if proc.returncode != 0 or len(rows) != 2 or any("error" in r for r in rows):
+            raise AssertionError(f"serve_sweep --quick exited {proc.returncode} with rows "
+                                 f"{rows}: {proc.stderr[-2000:]}")
+
+        log("  (f) scale_smoke --n 64 --epochs 1, adobe5k_run --selftest")
+        report = scale_smoke.main(["--n", "64", "--epochs", "1", "--root", str(tmp / "scale")])
+        psnr = scale_smoke.psnr_of(report["cli"]["checkpoint"])
+        out["scale_smoke"] = report
+        log(f"  scale_smoke: dataset {report['dataset']}, feed {report['feed_cold_vs_warm']}, "
+            f"uncached {report['feed_uncached']}, cli {report['cli']}  [{card}]")
+        if not np.isfinite(psnr):
+            raise AssertionError(f"scale_smoke: the best checkpoint's PSNR is {psnr}")
+        proc = subprocess.run([sys.executable, "-m", "curl_tpu_torch.tools.adobe5k_run",
+                               "--selftest"], cwd=root, capture_output=True, text=True,
+                              timeout=BENCH_TIMEOUT, env=dict(os.environ, TMPDIR=str(tmp)))
+        if proc.returncode != 0:
+            raise AssertionError(f"adobe5k_run --selftest exited {proc.returncode}: "
+                                 f"{proc.stderr[-3000:]}")
+        evidence = json.loads(proc.stdout.strip().splitlines()[-1])
+        out["adobe5k_run"] = evidence
+        log(f"  adobe5k_run --selftest: {evidence}  [{card}]")
+        if not all(np.isfinite(evidence.get(k, np.nan)) for k in ("valid_psnr", "test_psnr")):
+            raise AssertionError("adobe5k_run --selftest: the evidence's PSNRs are not finite")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def by_key(values: dict) -> dict:
     """A dict keyed by ints or tuples of ints, with JSON keys ("96",
     "2/96/257")."""
@@ -2727,6 +2861,11 @@ def main() -> int:
                         BATCH / chained["trispace"]["device_ms"] * 1e3)
     log(f"  phase 16 took {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
+    log("phase 17: the JAX system's tools in their port, curl_tpu_torch/tools/")
+    t0 = time.perf_counter()
+    tools = ported_tools(torch, card, dict(counters, K3=clk))
+    log(f"  phase 17 took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
     # K3 runs only on the training paths: its launches are theirs.
     clip_launches = sum(n["K3"] for _, n in train_times.values())
 
@@ -2812,7 +2951,7 @@ def main() -> int:
             "train_launches": clip_launches,
             "train_ms": clip_record["ms"],
         },
-    ], "bench_torch": bench}
+    ], "bench_torch": bench, "tools": tools}
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

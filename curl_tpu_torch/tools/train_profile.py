@@ -22,6 +22,10 @@
    them). The gradients of each tie-exact form are checked bitwise against
    the port's on tie-heavy input, and each form is traced once with its top
    kernels.
+3. The full-resolution fine-tune step of `fullres_backward_probe` (rw_t, BN
+   frozen, 320^2 predict, the residual and the CURL loss at 1080p, batch
+   2, the gradient over every parameter), traced for each residual impl:
+   "torch" (plain both ways) and "cuda" (K1 forward, its plain backward).
 
 Launches made here are not main-path launches; the kernels' counters are
 left as they were. Without CUDA it exits non-zero.
@@ -40,12 +44,14 @@ from curl_tpu_torch.ops import color_planes as cp
 from curl_tpu_torch.ops.kernels import clip_kernel as clk
 from curl_tpu_torch.ops.kernels import curve_kernel as ck
 from curl_tpu_torch.ops.kernels import trispace_kernel as tk
+from curl_tpu_torch.tools import fullres_backward_probe as fullres
 from curl_tpu_torch.tools import kernel_probe as kp
 from curl_tpu_torch.train import loop
 from curl_tpu_torch.train import state as state_lib
 from curl_tpu_torch.train import steps as steps_lib
 
 BATCH, CROP = 32, 256
+FINETUNE_BATCH, FINETUNE_HW = 2, (1080, 1920)
 TOP = 14
 
 
@@ -215,6 +221,19 @@ def bounds_forms(card: str, rng, forms: dict) -> None:
             trace(k2_step, f"{what}, {form} bounds", card)
 
 
+def finetune_steps(card: str) -> None:
+    x = {k: torch.from_numpy(v).cuda()
+         for k, v in fullres.inputs(FINETUNE_BATCH, FINETUNE_HW, 320).items()}
+    for impl in ("torch", "cuda"):
+        model = fullres.build(impl, "efficientnetv2_rw_t", x, torch.device("cuda"))
+        fullres.loss_and_grads(model, x)
+        trace(lambda: fullres.loss_and_grads(model, x),
+              f"fine-tune step, residual_impl={impl!r}, rw_t, batch {FINETUNE_BATCH} of "
+              f"{FINETUNE_HW[0]}x{FINETUNE_HW[1]}, BN frozen", card)
+        del model
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("train_profile: CUDA is not available; this runs on an NVIDIA GPU",
@@ -228,6 +247,7 @@ def main() -> int:
     forms = bound_forms()
     train_steps(card, rng, forms)
     bounds_forms(card, rng, forms)
+    finetune_steps(card)
     tk.LAUNCHES, ck.LAUNCHES = saved
     return 0
 

@@ -748,3 +748,87 @@ def test_exported_program_on_cuda_holds_the_ops(cuda, tmp_path):
                 ref = model(img, mask, target)
             ref = ref[0] if isinstance(ref, tuple) else ref
             torch.testing.assert_close(got, ref, rtol=0, atol=2e-4)
+
+
+# The ported tools (curl_tpu_torch/tools/), each once at a small size with
+# the tiny backbone; chip_smoke.py phase 17 runs them at their own sizes.
+
+
+def test_tool_curve_bench_on_cuda(cuda):
+    from curl_tpu_torch.tools import curve_bench
+
+    small = ["--height", "270", "--width", "480"]
+    assert curve_bench.main(["--case", "check"] + small)["ok"]
+    before = (tk.LAUNCHES, ck.LAUNCHES)
+    kernel = curve_bench.main(["--case", "kernel", "--batch", "2", "--iters", "3", "--reps", "2"]
+                              + small)
+    assert tk.LAUNCHES == before[0] and ck.LAUNCHES == before[1] + 1 + 3 * 2
+    assert kernel["per_image_ms"] > 0
+    e2e = curve_bench.e2e(2, 270, 480, 3, backbone="tiny", predict=64)
+    assert e2e["images_per_sec"] > 0
+
+
+def test_tool_infer_8k_probe_on_cuda(cuda):
+    from curl_tpu_torch.infer.engine import auto_tile_rows
+    from curl_tpu_torch.tools import infer_8k_probe
+
+    whole = infer_8k_probe.probe(540, 960, 1, backbone="tiny", predict=64)
+    banded = infer_8k_probe.probe(540, 960, 1, backbone="tiny", predict=64,
+                                  auto_tile_pixels=200_000)
+    assert whole["auto_tile_rows"] is None
+    assert banded["auto_tile_rows"] == auto_tile_rows(540, 960, 200_000) == 96
+    assert whole["warm_ms"] > 0 and banded["warm_ms"] > 0
+
+
+def test_tool_fullres_backward_probe_on_cuda(cuda):
+    from curl_tpu_torch.tools import fullres_backward_probe as fullres
+
+    before = tk.LAUNCHES
+    runs = [fullres.measure(impl, 2, 2, (270, 480), 64, "tiny") for impl in ("torch", "cuda")]
+    assert tk.LAUNCHES == before + 3  # the cuda run's warm-up and two steps
+    losses = [r["loss"] for r in runs]
+    assert np.isfinite(losses).all() and abs(losses[1] - losses[0]) <= 1e-4 * abs(losses[0])
+    assert all(r["peak_gib"] > 0 for r in runs)
+
+
+def test_tool_poly_grad_probe_on_cuda(cuda):
+    from curl_tpu_torch.tools import poly_grad_probe
+
+    small = ["--batch", "2", "--size", "64", "--iters", "2", "--reps", "2"]
+    assert poly_grad_probe.main(["--case", "check"] + small)["ok"]
+    for form in ("acc", "matmul"):
+        assert poly_grad_probe.main(["--case", "fwdbwd", "--form", form] + small)[
+            "ms_per_step"] > 0
+
+
+def test_tool_serve_sweep_on_cuda(cuda, tmp_path, monkeypatch):
+    from curl_tpu_torch.tools import serve_sweep
+
+    for env, value in (("BENCH_HW", "64x64"), ("BENCH_PREDICT", "32"),
+                       ("BENCH_BACKBONE", "tiny")):
+        monkeypatch.setenv(env, value)
+    out = tmp_path / "sweep.jsonl"
+    rows = serve_sweep.main(["--quick", "--iters", "2", "--out", str(out)])
+    assert len(rows) == 2 and all(r["images_per_sec"] > 0 for r in rows), rows
+    assert serve_sweep.main(["--quick", "--out", str(out)]) == []
+
+
+def test_tool_scale_smoke_on_cuda(cuda, tmp_path):
+    from curl_tpu_torch.tools import scale_smoke
+
+    report = scale_smoke.main(["--n", "10", "--size", "64", "--epochs", "1", "--batch", "2",
+                               "--root", str(tmp_path / "data")])
+    assert report["feed_cold_vs_warm"]["reshuffles"]
+    assert np.isfinite(scale_smoke.psnr_of(report["cli"]["checkpoint"]))
+
+
+def test_tool_adobe5k_run_on_cuda(cuda, tmp_path):
+    from curl_tpu_torch.tools import adobe5k_run, scale_smoke
+
+    scale_smoke.make_dataset(str(tmp_path / "data"), n=10, size=64)
+    evidence = adobe5k_run.main([
+        "--data_dir", str(tmp_path / "data"), "--epochs", "1", "--valid_every", "1",
+        "--batch_size", "2", "--backbone", "tiny", "--log_dir", str(tmp_path / "log"),
+        "--out", str(tmp_path / "evidence.json"),
+    ])
+    assert np.isfinite(evidence["valid_psnr"]) and np.isfinite(evidence["test_psnr"])

@@ -61,7 +61,14 @@ MODULES = [
     "curl_tpu_torch.infer",
     "curl_tpu_torch.infer.engine",
     "curl_tpu_torch.tools",
+    "curl_tpu_torch.tools.adobe5k_run",
+    "curl_tpu_torch.tools.curve_bench",
+    "curl_tpu_torch.tools.fullres_backward_probe",
+    "curl_tpu_torch.tools.infer_8k_probe",
     "curl_tpu_torch.tools.kernel_probe",
+    "curl_tpu_torch.tools.poly_grad_probe",
+    "curl_tpu_torch.tools.scale_smoke",
+    "curl_tpu_torch.tools.serve_sweep",
     "curl_tpu_torch.tools.train_profile",
     "curl_tpu_torch.tools.wrapper_times",
     "curl_tpu_torch.train",
