@@ -212,6 +212,13 @@ Phases, each of which fails the run:
      (f) scale_smoke --n 64 --epochs 1 (the best checkpoint's validation
          PSNR finite) and adobe5k_run --selftest in a child process (its
          evidence record's valid and test PSNRs finite).
+     (g) train_profile --case all --iters 5 (rw_t, batch 8 of 256^2, fp32,
+         precision "high": the JAX tool's defaults), each case's launches
+         counted (0 just before, read just after): 15 lines in the tool's
+         case order, each ms a step finite and positive; K1 launched
+         iters + 2 times (two warm-up calls) in full, full_noaug, fwd_loss,
+         apply and each ablate_*, and never in backbone, loss, ssim, hsv,
+         lab and augment; K2 never; K3 in full, full_noaug and apply.
 
 The kernels' record carries, besides each kernel's main-path launches and
 times, the launches of phases 12 and 13 and the backbone + head replay times
@@ -375,6 +382,7 @@ BENCH_MODES = (
 BENCH_BATCH = 32  # bench_torch.py's --batch default
 CEILING_TOL = 0.10
 BENCH_TIMEOUT = 600.0
+PROFILE_ITERS = 5  # train_profile's iterations a case in phase 17g
 
 
 def knot_std(counts, std16: float) -> float:
@@ -2507,7 +2515,35 @@ def ported_tools(torch, card: str, counters: dict) -> dict:
             raise AssertionError("adobe5k_run --selftest: the evidence's PSNRs are not finite")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    out["train_profile"] = profile_training(card, counters)
     return out
+
+
+def profile_training(card: str, counters: dict) -> list:
+    """Phase 17g: `train_profile --case all` at the JAX tool's defaults and
+    PROFILE_ITERS, each case's launches counted. Returns the tool's lines."""
+    from curl_tpu_torch.tools import train_profile
+
+    log(f"  (g) train_profile --case all --iters {PROFILE_ITERS}")
+    lines = train_profile.main(["--case", "all", "--iters", str(PROFILE_ITERS)],
+                               count=lambda fn: counted(counters, fn))
+    for line in lines:
+        log(f"  train_profile {line['case']}, rw_t batch {line['batch']} of {line['crop']}^2: "
+            f"{line['ms_per_step']} ms a step, {line['images_per_sec']} img/s, impl "
+            f"{line['impl']}, launches {line['launches']}  [{card}]")
+    if [line["case"] for line in lines] != list(train_profile.CASES):
+        raise AssertionError(f"train_profile: cases {[line['case'] for line in lines]}")
+    through_k1 = {"full", "full_noaug", "fwd_loss", "apply", *train_profile.ABLATIONS}
+    for line in lines:
+        n, ms = line["launches"], line["ms_per_step"]
+        k1 = PROFILE_ITERS + 2 if line["case"] in through_k1 else 0
+        k3 = line["case"] not in ("full", "full_noaug", "apply") or n["K3"] > 0
+        if not (np.isfinite(ms) and ms > 0) or n["K1"] != k1 or n["K2"] != 0 or not k3:
+            raise AssertionError(f"train_profile {line['case']}: {ms} ms a step, launches {n}; "
+                                 f"expected {k1} of K1, none of K2 and K3's in the steps")
+    return lines
 
 
 def by_key(values: dict) -> dict:

@@ -1,10 +1,30 @@
-"""Image IO, as the JAX package's `utils/imageio.py` has it: 8-bit image
-files through PIL, imported inside the functions.
+"""Image IO and axis-order helpers, as the JAX package's `utils/imageio.py`
+has them: 8-bit image files through PIL, imported inside the functions, and
+the NCHW <-> NHWC swaps for numpy arrays at the boundaries with
+channel-first code.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+
+def chw_to_hwc(img: np.ndarray) -> np.ndarray:
+    """(C,H,W)->(H,W,C) or (N,C,H,W)->(N,H,W,C)."""
+    if img.ndim == 3:
+        return np.transpose(img, (1, 2, 0))
+    if img.ndim == 4:
+        return np.transpose(img, (0, 2, 3, 1))
+    raise ValueError(f"expected 3- or 4-d array, got shape {img.shape}")
+
+
+def hwc_to_chw(img: np.ndarray) -> np.ndarray:
+    """(H,W,C)->(C,H,W) or (N,H,W,C)->(N,C,H,W)."""
+    if img.ndim == 3:
+        return np.transpose(img, (2, 0, 1))
+    if img.ndim == 4:
+        return np.transpose(img, (0, 3, 1, 2))
+    raise ValueError(f"expected 3- or 4-d array, got shape {img.shape}")
 
 
 def save_image_u8(img01: np.ndarray, path: str) -> None:

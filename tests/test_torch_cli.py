@@ -161,3 +161,20 @@ def test_image_io_round_trip_matches_jax(tmp_path):
     u8 = (got * 255).round().astype(np.uint8)
     tio.save_image_u8(u8, str(tmp_path / "u8.png"))
     np.testing.assert_array_equal(tio.load_image_u8(str(tmp_path / "u8.png")), got)
+
+
+@pytest.mark.parametrize("fn", ["chw_to_hwc", "hwc_to_chw"])
+@pytest.mark.parametrize("shape", [(3, 5, 7), (2, 3, 5, 7)], ids=["3d", "4d"])
+def test_axis_helpers_bitwise_jax(fn, shape):
+    """The port's own numpy copies of the axis swaps, exported from
+    `curl_tpu_torch.utils`: bitwise `curl_tpu.utils`'s on 3-d and 4-d
+    arrays, and a ValueError on a 2-d one."""
+    from curl_tpu import utils as jutils
+    from curl_tpu_torch import utils as tutils
+
+    img = np.random.default_rng(0).uniform(size=shape).astype(np.float32)
+    got, expect = getattr(tutils, fn)(img), getattr(jutils, fn)(img)
+    assert got.shape == expect.shape and got.dtype == expect.dtype
+    np.testing.assert_array_equal(got, expect)
+    with pytest.raises(ValueError, match="3- or 4-d"):
+        getattr(tutils, fn)(img.reshape(shape[-2], -1))

@@ -832,3 +832,14 @@ def test_tool_adobe5k_run_on_cuda(cuda, tmp_path):
         "--out", str(tmp_path / "evidence.json"),
     ])
     assert np.isfinite(evidence["valid_psnr"]) and np.isfinite(evidence["test_psnr"])
+
+
+def test_tool_train_profile_on_cuda(cuda):
+    from curl_tpu_torch.tools import train_profile
+
+    before = tk.LAUNCHES
+    (line,) = train_profile.main(["--case", "apply", "--backbone", "tiny", "--batch", "2",
+                                  "--crop", "64", "--iters", "3"])
+    assert tk.LAUNCHES == before + 3 + 2  # the iterations and two warm-up calls
+    assert line["impl"] == "cuda" and line["case"] == "apply"
+    assert np.isfinite(line["ms_per_step"]) and line["ms_per_step"] > 0

@@ -70,6 +70,7 @@ MODULES = [
     "curl_tpu_torch.tools.scale_smoke",
     "curl_tpu_torch.tools.serve_sweep",
     "curl_tpu_torch.tools.train_profile",
+    "curl_tpu_torch.tools.train_trace",
     "curl_tpu_torch.tools.wrapper_times",
     "curl_tpu_torch.train",
     "curl_tpu_torch.train.checkpoint",

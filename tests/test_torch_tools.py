@@ -59,6 +59,7 @@ from curl_tpu_torch.tools import infer_8k_probe  # noqa: E402
 from curl_tpu_torch.tools import poly_grad_probe  # noqa: E402
 from curl_tpu_torch.tools import scale_smoke as t_scale  # noqa: E402
 from curl_tpu_torch.tools import serve_sweep  # noqa: E402
+from curl_tpu_torch.tools import train_profile  # noqa: E402
 from tools import adobe5k_run as j_adobe  # noqa: E402
 from tools import scale_smoke as j_scale  # noqa: E402
 
@@ -333,6 +334,7 @@ def test_serve_sweep_failing_case_writes_an_error_row(tmp_path, monkeypatch):
     (fullres, []),
     (poly_grad_probe, ["--case", "check"]),
     (serve_sweep, ["--quick"]),
+    (train_profile, ["--case", "augment"]),
 ], ids=lambda v: getattr(v, "__name__", "").rsplit(".", 1)[-1] or None)
 def test_tools_raise_without_cuda(tool, argv, tmp_path):
     """No tool falls back to the CPU quietly; each raises before any work."""
