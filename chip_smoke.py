@@ -199,7 +199,10 @@ Phases, each of which fails the run:
      numbers printed beside the card's name and power limit:
      (a) curve_bench: `check` at 1080p (K2 against the plain chain at 48 /
          48 / 64 knots a curve, knot logits of std 0.1: p99.9 < 2e-3 and
-         max < 5e-2, the JAX tool's criteria); `kernel` at batch 8 (K2
+         max < 5e-2, the JAX tool's criteria); `float64` at 1080p batch 2
+         (K2 and the plain fp32 chain against the plain chain in float64:
+         K2's 99.9th percentile and share past 2e-4 each at most twice the
+         plain chain's; one K2 launch); `kernel` at batch 8 (K2
          launches and no K1), and the plain chain's; `e2e` at batch 8, 12
          iterations (13 K2 launches with the warm-up).
      (b) infer_8k_probe --repeat 2 (4K and 8K, band height as the engine
@@ -2416,6 +2419,10 @@ def ported_tools(torch, card: str, counters: dict) -> dict:
     check = curve_bench.main(["--case", "check"])
     if not check["ok"]:
         raise AssertionError(f"curve_bench check: K2 against the plain chain {check}")
+    exact, n = counted(counters, lambda: curve_bench.main(["--case", "float64", "--batch", "2"]))
+    if not exact["ok"] or n["K2"] != 1 or exact["reference_float64"]["max_abs_err"] > 1e-9:
+        raise AssertionError(f"curve_bench float64: K2 farther from the exact function than "
+                             f"twice the plain fp32 chain, or not launched once ({n}): {exact}")
     kernel, n = counted(counters, lambda: curve_bench.main(["--case", "kernel", "--batch",
                                                            str(BATCH)]))
     if n["K2"] < 1 or n["K1"] != 0:
@@ -2426,8 +2433,10 @@ def ported_tools(torch, card: str, counters: dict) -> dict:
                                                              str(BATCH), "--iters", "12"]))
     if e2e_n["K2"] != 13 or e2e_n["K1"] != 0:
         raise AssertionError(f"curve_bench e2e: expected 13 K2 launches, counted {e2e_n}")
-    out["curve_bench"] = {"check": check, "kernel": kernel, "plain": plain, "e2e": e2e,
-                          "kernel_launches": n, "e2e_launches": e2e_n}
+    out["curve_bench"] = {"check": check, "float64": exact, "kernel": kernel, "plain": plain,
+                          "e2e": e2e, "kernel_launches": n, "e2e_launches": e2e_n}
+    log(f"  curve_bench float64 1080p batch 2, from the exact function: K2 {exact['kernel']}; "
+        f"plain fp32 chain {exact['plain']}  [{card}]")
     log(f"  curve_bench check 1080p: {check}; kernel batch {BATCH}: "
         f"{kernel['per_image_ms']:.4f} ms an image ({n}), plain chain "
         f"{plain['per_image_ms']:.3f} ms an image; e2e rw_t {PREDICT}^2 -> 1080p batch {BATCH}: "

@@ -6,6 +6,7 @@ from curl_tpu_torch.data.dataset import (
     Record,
     crop_pair,
     load_example,
+    load_image,
     read_split_ids,
     scan_data_dir,
     select_records,
@@ -18,6 +19,7 @@ __all__ = [
     "augment_batch",
     "crop_pair",
     "load_example",
+    "load_image",
     "prefetch",
     "read_split_ids",
     "rotate_nearest",

@@ -13,6 +13,7 @@ from curl_tpu_torch.ops.curves import (
 )
 from curl_tpu_torch.ops.enhance import generate_image, trispace_enhance, trispace_residual
 from curl_tpu_torch.ops.poly import (
+    monomial_basis,
     monomial_chain,
     monomial_powers,
     num_monomials,
@@ -20,6 +21,9 @@ from curl_tpu_torch.ops.poly import (
     poly_string,
     powers_array,
 )
+# As in the JAX package, the bare `ssim` function is not re-exported: it
+# would shadow the `ops.ssim` module. Use `ops.ssim.ssim`.
+from curl_tpu_torch.ops.ssim import ms_ssim
 
 __all__ = [
     "adjust_hsv",
@@ -32,7 +36,9 @@ __all__ = [
     "generate_image",
     "hsv_to_rgb",
     "lab_to_rgb",
+    "monomial_basis",
     "monomial_chain",
+    "ms_ssim",
     "monomial_powers",
     "num_monomials",
     "poly_apply",

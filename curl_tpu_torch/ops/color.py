@@ -40,7 +40,12 @@ _LAB_OFFSET = (16.0, 0.0, 0.0)
 
 
 def _const(values, like: Tensor) -> Tensor:
-    return torch.tensor(values, dtype=like.dtype, device=like.device)
+    """The constants in like's dtype, from their float32 values: the JAX
+    package holds these matrices as float32 arrays, so a float64 evaluation
+    (the yardstick of the fp32 paths) computes the function that the fp32
+    paths and the kernels round, not one with other constants. fp32 and
+    bf16 get the values they would get directly."""
+    return torch.tensor(values, dtype=torch.float32, device=like.device).to(like.dtype)
 
 
 def _mat(img: Tensor, m) -> Tensor:

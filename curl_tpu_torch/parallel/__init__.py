@@ -2,7 +2,7 @@
 the ranks, gradients and BatchNorm statistics reduced over them, and the
 row-sharded apply."""
 
-from curl_tpu_torch.parallel.mesh import (  # noqa: F401
+from curl_tpu_torch.parallel.mesh import (
     DATA_AXIS,
     MODEL_AXIS,
     Mesh,
@@ -12,3 +12,14 @@ from curl_tpu_torch.parallel.mesh import (  # noqa: F401
     pad_batch_size,
     replicated,
 )
+
+__all__ = [
+    "DATA_AXIS",
+    "MODEL_AXIS",
+    "Mesh",
+    "auto_mesh",
+    "batch_sharding",
+    "make_mesh",
+    "pad_batch_size",
+    "replicated",
+]

@@ -2,6 +2,7 @@
 against its plain chain, K2's time an image, and `CurlCurveNet` end to end:
 
     python -m curl_tpu_torch.tools.curve_bench --case check
+    python -m curl_tpu_torch.tools.curve_bench --case float64 --batch 2
     python -m curl_tpu_torch.tools.curve_bench --case kernel [--impl torch]
     python -m curl_tpu_torch.tools.curve_bench --case e2e --batch 8
 
@@ -14,6 +15,15 @@ curve and 64 to each HSV curve (K2's runtime-count instance).
           by more than 2e-4. `ok` needs p99.9 < 2e-3 and max < 5e-2: the
           ten sequential curves can flip a hue or clip branch where the
           two round an ulp apart, which makes isolated values large.
+  float64 K2's output and the plain fp32 chain's, each against the exact
+          function: the plain chain in float64 (`float64_reference`),
+          with the same spread (max, 99.9th percentile, share past 2e-4)
+          for each, and the kernel's plain version in float64 against it
+          as a check of the yardstick. `ok` needs K2's 99.9th percentile
+          and share each no more than twice the plain chain's: K2 no
+          farther from the exact function than the plain chain is. The
+          max is printed and does not decide (isolated hue and clip
+          flips).
   kernel  ms an image of `curl_curve_layer` with --impl (cuda: one K2
           launch; torch: the plain chain): --iters back-to-back calls
           between two CUDA events, the least of --reps such windows.
@@ -39,6 +49,8 @@ import torch
 from curl_tpu_torch.device import resolve_device
 from curl_tpu_torch.models.backbone import calibrate_batch_norm
 from curl_tpu_torch.models.curl_curve import CurlCurveNet, curl_curve_layer
+from curl_tpu_torch.ops import curves
+from curl_tpu_torch.ops.kernels.curve_kernel import fused_curve_enhance_reference
 from curl_tpu_torch.tools.kernel_probe import cuda_ms
 
 KNOTS = (48, 48, 64)  # a curve's knots, Lab, RGB and HSV
@@ -46,6 +58,9 @@ KNOT_STD = 0.1
 PREDICT = 320
 BACKBONE = "efficientnetv2_rw_t"
 CHECK_TOL = 2e-4
+# `float64`'s bound on K2's spread from the exact function, as a multiple
+# of the plain fp32 chain's.
+FLOAT64_RATIO = 2.0
 
 
 def inputs(b: int, h: int, w: int, predict: int = PREDICT) -> tuple[np.ndarray, ...]:
@@ -60,16 +75,48 @@ def inputs(b: int, h: int, w: int, predict: int = PREDICT) -> tuple[np.ndarray, 
     return (img, mask, *knots, small)
 
 
+def spread(got, expect) -> dict:
+    """|got - expect|'s max, 99.9th percentile, share past CHECK_TOL and
+    count past 1e-2 (branch flips), taken in the wider of the two dtypes."""
+    dtype = torch.promote_types(got.dtype, expect.dtype)
+    err = (got.to(dtype) - expect.to(dtype)).abs().flatten()
+    p999 = torch.kthvalue(err, max(1, int(np.ceil(0.999 * err.numel())))).values
+    return {"max_abs_err": float(err.max()), "p999_abs_err": float(p999),
+            "share_over_2e-4": float((err > CHECK_TOL).double().mean()),
+            "count_over_1e-2": int((err > 1e-2).sum())}
+
+
 def check(img, mask, kl, kr, kh) -> dict:
     """K2 against the plain chain on the same tensors."""
     got, _ = curl_curve_layer(img, mask, kl, kr, kh, impl="cuda")
     expect, _ = curl_curve_layer(img, mask, kl, kr, kh, impl="torch")
-    err = (got - expect).abs().flatten()
-    mx = float(err.max())
-    p999 = float(torch.kthvalue(err, max(1, int(np.ceil(0.999 * err.numel())))).values)
-    share = float((err > CHECK_TOL).float().mean())
-    return {"max_abs_err": mx, "p999_abs_err": p999, "share_over_2e-4": share,
-            "ok": p999 < 2e-3 and mx < 5e-2}
+    s = spread(got, expect)
+    return {**s, "ok": s["p999_abs_err"] < 2e-3 and s["max_abs_err"] < 5e-2}
+
+
+def float64_reference(img, mask, kl, kr, kh):
+    """The curve layer's exact function, as a yardstick: the plain chain
+    (`curl_curve_layer(impl="torch")`) on the image, mask and knot logits
+    in float64, the knots' exp and split included."""
+    return curl_curve_layer(*(x.double() for x in (img, mask, kl, kr, kh)), impl="torch")[0]
+
+
+def float64_check(img, mask, kl, kr, kh) -> dict:
+    """K2 (impl="cuda") and the plain fp32 chain, each against
+    `float64_reference`, and the kernel's plain version in float64 against
+    it (a check of the yardstick: the two float64 forms agree to their
+    rounding). `ok`: K2's 99.9th
+    percentile and share past CHECK_TOL each at most FLOAT64_RATIO times
+    the plain chain's."""
+    exact = float64_reference(img, mask, kl, kr, kh)
+    stacks = (torch.stack(curves._split_knots(k.double(), n), dim=1)
+              for k, n in ((kl, 3), (kr, 3), (kh, 4)))
+    reference64 = fused_curve_enhance_reference(img.double(), mask.double(), *stacks)
+    kernel = spread(curl_curve_layer(img, mask, kl, kr, kh, impl="cuda")[0], exact)
+    plain = spread(curl_curve_layer(img, mask, kl, kr, kh, impl="torch")[0], exact)
+    ok = all(kernel[k] <= FLOAT64_RATIO * plain[k] for k in ("p999_abs_err", "share_over_2e-4"))
+    return {"kernel": kernel, "plain": plain,
+            "reference_float64": spread(reference64, exact), "ok": ok}
 
 
 def kernel_ms(img, mask, kl, kr, kh, impl: str, iters: int, reps: int) -> float:
@@ -120,7 +167,7 @@ def _finish(x, device) -> None:
 
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--case", default="kernel", choices=["kernel", "e2e", "check"])
+    ap.add_argument("--case", default="kernel", choices=["kernel", "e2e", "check", "float64"])
     ap.add_argument("--impl", default="cuda", choices=["cuda", "torch"])
     ap.add_argument("--batch", type=int, default=1)
     ap.add_argument("--height", type=int, default=1080)
@@ -139,8 +186,9 @@ def main(argv=None, device: Optional[str] = None) -> dict:
         result = {**base, **e2e(b, h, w, args.iters, args.impl, device=dev)}
     else:
         img, mask, kl, kr, kh = (torch.from_numpy(x).to(dev) for x in inputs(b, h, w)[:5])
-        if args.case == "check":
-            result = {**base, **check(img, mask, kl, kr, kh)}
+        if args.case in ("check", "float64"):
+            fn = check if args.case == "check" else float64_check
+            result = {**base, **fn(img, mask, kl, kr, kh)}
         else:
             ms = kernel_ms(img, mask, kl, kr, kh, args.impl, args.iters, args.reps)
             result = {**base, "per_image_ms": ms / b, "images_per_sec_kernel_only": b / ms * 1e3}

@@ -3,7 +3,7 @@ repeat on every run, on one NVIDIA GPU:
 
     python3 -m curl_tpu_torch.tools.kernel_probe [--sweep D [D ...]]
         [--other-order D [D ...]] [--k2-chunks C [C ...]] [--math-check]
-        [--parent DIR] [--no-sass] [--no-plain]
+        [--k2-float64] [--parent DIR] [--no-sass] [--no-plain]
 
 1. K1's instance sweep, at each degree D of `--sweep` (default 4). K1's
    generated header (`ops/kernels/poly_tables.py`) fixes its pixels per
@@ -59,6 +59,16 @@ repeat on every run, on one NVIDIA GPU:
    recorded bound; it fails if a primitive exceeds its bound or one
    recorded as bitwise (the constant divisions, recip, sigmoid) differs
    from the IEEE form.
+5. With `--k2-float64`, where K2's distance from the exact function comes
+   from at curve_bench's steep curves (48 / 48 / 64 knots a curve, logit
+   std 0.1, 1080p batch 2): K2 built from copies of its sources with one
+   part of its arithmetic made more exact at a time (K2_MATH_VARIANTS: the
+   sRGB powers as IEEE `powf`, the prefix table summed in float64, both),
+   each variant and the built K2 against `curve_bench.float64_reference`
+   beside the plain fp32 chain (`curve_bench.spread`: max, 99.9th
+   percentile, share past 2e-4), and each variant's bare launch timed in
+   turns with the built one's (built, variant, variant, built) at 1080p
+   batch 8, at 16 knots a curve (logit std 0.05) and at 48 / 48 / 64.
 3. The cost of the plain versions, which are also the kernels' backward:
    K1's and K2's plain forward at 1080p batch 8 (K2 at 16 knots with a
    mask, as `chip_smoke.py` times it), and one training step through each
@@ -565,6 +575,83 @@ def k2_chunks(card: str, rng, chunks) -> None:
                 f"[{card}]")
 
 
+# Text substitutions, (file, the text, its replacement), that make one part
+# of K2's arithmetic more exact, for section 5.
+K2_MATH_VARIANTS = {
+    "powf": (
+        ("color_planes.cuh",
+         "float srgb_pow(float u) { return ex2_approx(2.4f * lg2_approx(u)); }",
+         "float srgb_pow(float u) { return powf(u, 2.4f); }"),
+        ("color_planes.cuh",
+         "return ex2_approx(static_cast<float>(1.0 / 2.4) * lg2_approx(x));",
+         "return powf(x, static_cast<float>(1.0 / 2.4));"),
+    ),
+    "prefix64": (
+        ("curve_kernel.cu", "  float prefix = knot;\n", "  double prefix = knot;\n"),
+        ("curve_kernel.cu", "tab[j] = make_float2(prefix, s);",
+         "tab[j] = make_float2(static_cast<float>(prefix), s);"),
+    ),
+}
+K2_MATH_VARIANTS["powf_prefix64"] = K2_MATH_VARIANTS["powf"] + K2_MATH_VARIANTS["prefix64"]
+
+
+def build_k2_variant(name: str) -> Path:
+    """K2 from copies of its sources with K2_MATH_VARIANTS[name] applied;
+    returns the library."""
+    work = PROBE_DIR / f"curve_kernel_{name}"
+    work.mkdir(parents=True, exist_ok=True)
+    texts = {f: (build.CSRC / f).read_text() for f in ("curve_kernel.cu", "color_planes.cuh")}
+    for file, old, new in K2_MATH_VARIANTS[name]:
+        if texts[file].count(old) != 1:
+            raise RuntimeError(f"{name}: {old!r} is not once in {file}")
+        texts[file] = texts[file].replace(old, new)
+    for file, text in texts.items():
+        (work / file).write_text(text)
+    lib = PROBE_DIR / f"libcurve_kernel_{name}.so"
+    nvcc(work / "curve_kernel.cu", work, lib)
+    return lib
+
+
+def k2_float64(card: str, rng) -> None:
+    """Section 5: K2 and its more exact variants against the float64
+    yardstick at curve_bench's steep curves, and their times."""
+    from curl_tpu_torch.tools import curve_bench
+
+    with concurrent.futures.ThreadPoolExecutor(len(K2_MATH_VARIANTS)) as pool:
+        paths = dict(zip(K2_MATH_VARIANTS, pool.map(build_k2_variant, K2_MATH_VARIANTS)))
+    libs = {"built": load_k2(build.build("curve_kernel"), False)}
+    libs.update({name: load_k2(path, False) for name, path in paths.items()})
+
+    def stacks(kl, kr, kh):
+        return [torch.stack(curves._split_knots(k, n), dim=1)
+                for k, n in ((kl, 3), (kr, 3), (kh, 4))]
+
+    img, mask, kl, kr, kh = (torch.from_numpy(x).cuda()
+                             for x in curve_bench.inputs(2, HEIGHT, WIDTH)[:5])
+    exact = curve_bench.float64_reference(img, mask, kl, kr, kh)
+    plain = curl_curve.curl_curve_layer(img, mask, kl, kr, kh, impl="torch")[0]
+    log(f"K2 against float64, 48/48/64 knots a curve, logit std {curve_bench.KNOT_STD}, 1080p "
+        f"batch 2: plain fp32 chain {json.dumps(curve_bench.spread(plain, exact))}  [{card}]")
+    del plain
+    knots = stacks(kl, kr, kh)
+    for name, lib in libs.items():
+        got = k2_call(lib, img, mask, *knots)
+        log(f"  K2 {name}: {json.dumps(curve_bench.spread(got, exact))}")
+    del img, mask, exact, knots
+
+    img16, _, knots16 = curve_inputs(rng, BATCH, HEIGHT, WIDTH, (16, 16, 16), std=0.05)
+    img_b, _, *logits = (torch.from_numpy(x).cuda()
+                         for x in curve_bench.inputs(BATCH, HEIGHT, WIDTH)[:5])
+    cases = {"16 knots": (img16, k2_inputs(libs["built"], *knots16)),
+             "48/48/64 knots": (img_b, k2_inputs(libs["built"], *stacks(*logits)))}
+    for what, (x, inputs) in cases.items():
+        for name in K2_MATH_VARIANTS:
+            b_ms, v_ms = in_turns(lambda: k2_launch(libs["built"], x, None, inputs),
+                                  lambda: k2_launch(libs[name], x, None, inputs), ITERS)
+            log(f"K2 {what} 1080p batch {BATCH} fp32 no mask, bare: built {b_ms[0]:.4f} / "
+                f"{b_ms[1]:.4f} ms, {name} {v_ms[0]:.4f} / {v_ms[1]:.4f} ms  [{card}]")
+
+
 def k1_sweep(card: str, rng, sweep, other) -> None:
     """Section 1: the launch shapes of K1_VARIANTS at the degrees of `sweep`
     and the other chain order at the degrees of `other`."""
@@ -815,6 +902,8 @@ def main(argv=None) -> int:
                         help="runs of 256 pixels a block at which to time 16-knot K2")
     parser.add_argument("--math-check", action="store_true",
                         help="check each color math primitive over its float32 domain")
+    parser.add_argument("--k2-float64", action="store_true",
+                        help="K2 and more exact variants against float64 at steep curves")
     parser.add_argument("--parent", type=Path, help="checkout to hold K1 and K2 against")
     parser.add_argument("--no-sass", action="store_true", help="skip the SASS opcode counts")
     parser.add_argument("--no-plain", action="store_true", help="skip the plain versions' costs")
@@ -838,6 +927,8 @@ def main(argv=None) -> int:
         plain_costs(card, rng)
     if args.math_check:
         math_check(card)
+    if args.k2_float64:
+        k2_float64(card, rng)
     tk.LAUNCHES, ck.LAUNCHES = saved
     return 0
 

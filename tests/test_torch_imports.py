@@ -69,6 +69,7 @@ MODULES = [
     "curl_tpu_torch.tools.poly_grad_probe",
     "curl_tpu_torch.tools.scale_smoke",
     "curl_tpu_torch.tools.serve_sweep",
+    "curl_tpu_torch.tools.short_run_probe",
     "curl_tpu_torch.tools.train_profile",
     "curl_tpu_torch.tools.train_trace",
     "curl_tpu_torch.tools.wrapper_times",

@@ -260,6 +260,25 @@ def test_curve_bench_layer_as_close_to_float64_as_jax(impl):
     np.testing.assert_allclose(got_reg.numpy(), np.asarray(expect_reg), rtol=1e-5)
 
 
+def test_curve_bench_float64_yardstick_matches_jax_x64():
+    """The yardstick that the card holds K2 to (curve_bench.float64_reference:
+    the port's plain chain in float64, knots' exp and split included) is
+    `curl_tpu`'s float64 evaluation at curve_bench's steep curves, within
+    1e-9; so it narrows nowhere to float32. The float64 yardstick of K2's
+    plain version agrees with it, and the float64 case's report holds K2's
+    plain version (what impl="cuda" takes on the CPU) as the plain chain."""
+    arrays = curve_bench.inputs(2, 32, 48)[:5]
+    tensors = [torch.from_numpy(a) for a in arrays]
+    got = curve_bench.float64_reference(*tensors)
+    assert got.dtype == torch.float64
+    exact = _jax64(lambda *a: j_curve_layer(*a, impl="xla"), *arrays)
+    np.testing.assert_allclose(got.numpy(), exact, atol=1e-9, rtol=0)
+    report = curve_bench.float64_check(*tensors)
+    assert report["reference_float64"]["max_abs_err"] <= 1e-9
+    assert report["kernel"] == report["plain"] and report["ok"]
+    assert report["plain"]["max_abs_err"] > 0
+
+
 @pytest.mark.parametrize("budget,rows", [(8192, 32), (1 << 20, None)], ids=["bands", "whole"])
 def test_infer_8k_probe_band_height(budget, rows):
     report = infer_8k_probe.probe(96, 128, 1, backbone="tiny", device="cpu",
