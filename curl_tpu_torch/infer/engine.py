@@ -33,6 +33,7 @@ from curl_tpu_torch.device import DeviceLike, resolve_device
 from curl_tpu_torch.models.curl_curve import CurlCurveNet
 from curl_tpu_torch.models.trispace import TriSpacePolyNet
 from curl_tpu_torch.ops import enhance, wire
+from curl_tpu_torch.utils.profiling import span
 
 # Bytes that a whole-image apply keeps live per target pixel, by path:
 #   cuda_u8 (the u8 wire: a uint8 target with out_u8): the fused kernel
@@ -158,7 +159,8 @@ class Enhancer:
         self._chained: dict[tuple, _ChainedGraph] = {}
 
     def _to_device(self, x) -> Tensor:
-        return torch.as_tensor(x).to(self.device, non_blocking=True)
+        with span("curl_tpu_torch::engine.upload"):
+            return torch.as_tensor(x).to(self.device, non_blocking=True)
 
     def _polynomial_only(self) -> None:
         if self.is_curve:
@@ -201,28 +203,29 @@ class Enhancer:
         the fused apply with composite, and the u8 quantization, all on the
         device. A uint8 target with `out_u8` stays uint8 end to end: one
         kernel launch reads it and writes the u8 result."""
-        target = self._to_device(target)
-        u8_wire = self.out_u8 and target.dtype == torch.uint8
-        if not u8_wire:
-            target = wire.norm_u8(target)
-        if self.is_curve:
-            img_small = wire.norm_u8(self._to_device(img_small))
-            mask_small = wire.norm_u8(self._to_device(mask_small), scale=False)
-            with torch.inference_mode():
-                out, _ = self.model(img_small, mask_small, target)
-        else:
-            r, l, h = self.coefficients(img_small, mask_small)
-            with torch.inference_mode():
-                out = enhance.trispace_enhance(
-                    target, r, l, h,
-                    degree=self.model.polynomial_order,
-                    spatial=self.model.spatial,
-                    impl=self.impl,
-                )
-        if self.out_u8 and not u8_wire:
-            with torch.inference_mode():
-                out = wire.quantize_u8(out)
-        return out
+        with span("curl_tpu_torch::engine.batch"):
+            target = self._to_device(target)
+            u8_wire = self.out_u8 and target.dtype == torch.uint8
+            if not u8_wire:
+                target = wire.norm_u8(target)
+            if self.is_curve:
+                img_small = wire.norm_u8(self._to_device(img_small))
+                mask_small = wire.norm_u8(self._to_device(mask_small), scale=False)
+                with torch.inference_mode():
+                    out, _ = self.model(img_small, mask_small, target)
+            else:
+                r, l, h = self.coefficients(img_small, mask_small)
+                with torch.inference_mode():
+                    out = enhance.trispace_enhance(
+                        target, r, l, h,
+                        degree=self.model.polynomial_order,
+                        spatial=self.model.spatial,
+                        impl=self.impl,
+                    )
+            if self.out_u8 and not u8_wire:
+                with torch.inference_mode():
+                    out = wire.quantize_u8(out)
+            return out
 
     def enhance_chained(self, img_small, mask_small, target) -> tuple[Tensor, Tensor]:
         """K-chained serving: every input carries a leading chain axis

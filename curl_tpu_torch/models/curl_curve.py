@@ -26,6 +26,7 @@ from curl_tpu_torch.models import backbone as bb
 from curl_tpu_torch.ops import color, curves, enhance, wire
 from curl_tpu_torch.ops.color_planes import clip
 from curl_tpu_torch.ops.kernels.curve_kernel import fused_curve_enhance
+from curl_tpu_torch.utils.profiling import span
 
 
 def _curve_regularizer(knots: Tensor) -> Tensor:
@@ -129,7 +130,7 @@ class CurlCurveNet(nn.Module):
         knot parameters. Forward convolutions run without TF32; matmul TF32
         stays at torch's default, off. The backward follows the run's
         setting (`config.apply_precision`)."""
-        with bb.fp32_convs():
+        with span("curl_tpu_torch::model.predict"), bb.fp32_convs():
             return self.backbone(img)
 
     def forward(

@@ -33,6 +33,7 @@ from torch import Tensor, nn
 from curl_tpu_torch.device import DeviceLike, resolve_device
 from curl_tpu_torch.models import backbone as bb
 from curl_tpu_torch.ops import enhance, poly
+from curl_tpu_torch.utils.profiling import span
 
 HEAD_WIDTHS = (1024, 512, 512)
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -153,13 +154,14 @@ class TriSpacePolyNet(nn.Module):
         amplifies coefficient error); matmul TF32 stays at torch's default,
         off. The backward follows the run's setting
         (`config.apply_precision`). TF32 does not touch bf16 convolutions."""
-        x = (img * mask.to(img.dtype)).to(self.compute_dtype)
-        with bb.fp32_convs():
-            coeffs = self.backbone(x)
-        coeffs = coeffs.float().reshape(
-            img.shape[0], self.num_spaces, self.num_channels, self.num_coeffs
-        )
-        return coeffs[:, 0], coeffs[:, 1], coeffs[:, 2]
+        with span("curl_tpu_torch::model.predict"):
+            x = (img * mask.to(img.dtype)).to(self.compute_dtype)
+            with bb.fp32_convs():
+                coeffs = self.backbone(x)
+            coeffs = coeffs.float().reshape(
+                img.shape[0], self.num_spaces, self.num_channels, self.num_coeffs
+            )
+            return coeffs[:, 0], coeffs[:, 1], coeffs[:, 2]
 
     def forward(
         self,

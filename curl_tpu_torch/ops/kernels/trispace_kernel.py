@@ -44,6 +44,7 @@ from torch import Tensor
 from curl_tpu_torch.ops import color_planes as cp
 from curl_tpu_torch.ops import coords, poly, wire
 from curl_tpu_torch.ops.kernels import build, poly_tables
+from curl_tpu_torch.utils.profiling import span
 
 LAUNCHES = 0
 
@@ -279,18 +280,21 @@ class _FusedTrispace(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         degree, row0, spatial, total_h, total_w, composite = ctx.cfg
-        inputs = [t.detach().requires_grad_(need)
-                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad[:4])]
-        wanted = [t for t in inputs if t.requires_grad]
-        grads = iter(())
-        if wanted:
-            with torch.enable_grad():
-                out = fused_trispace_residual_reference(
-                    *inputs, row0, degree=degree, spatial=spatial,
-                    total_h=total_h, total_w=total_w, composite=composite,
-                )
-                grads = iter(torch.autograd.grad(out, wanted, grad))
-        return tuple(next(grads) if t.requires_grad else None for t in inputs) + (None,) * 5
+        with span("curl_tpu_torch::k1.backward"):
+            inputs = [t.detach().requires_grad_(need)
+                      for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad[:4])]
+            wanted = [t for t in inputs if t.requires_grad]
+            grads = iter(())
+            if wanted:
+                # No local holds the recomputed graph, so its teardown falls
+                # inside the span too.
+                with torch.enable_grad():
+                    grads = iter(torch.autograd.grad(fused_trispace_residual_reference(
+                        *inputs, row0, degree=degree, spatial=spatial,
+                        total_h=total_h, total_w=total_w, composite=composite,
+                    ), wanted, grad))
+            return tuple(next(grads) if t.requires_grad else None
+                         for t in inputs) + (None,) * 5
 
 
 def fused_trispace_residual(

@@ -1,7 +1,8 @@
 """Profiling and step-time observability.
 
 `trace` records the enclosed region with `torch.profiler` (the host and, on
-a CUDA machine, the device) and writes a Chrome trace. `sync` and
+a CUDA machine, the device) and writes a Chrome trace. `span` marks a layer
+boundary of the program in whatever profiler records. `sync` and
 `StepTimer` time with CUDA events on a CUDA device and with the host clock
 elsewhere.
 """
@@ -14,6 +15,27 @@ import time
 from typing import Iterator, Optional
 
 import torch
+from torch._C._profiler import _RecordFunctionFast as _Operator
+from torch.autograd import profiler as _autograd_profiler
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str) -> contextlib.AbstractContextManager:
+    """A span named `name` around the enclosed code while a `torch.profiler`
+    records; otherwise one shared no-op context, after a single flag read.
+
+    Recorded, the span is a host operator event on the profiler's own clock,
+    beside the device's kernels and copies. Its parent is the span or
+    operator that encloses it on the same thread, and each launch made
+    inside it is tied to it, whenever and on whatever stream the launched
+    work runs. It is an operator event, not a `record_function` annotation,
+    which the profiler also draws on the device's timeline. Names are
+    `curl_tpu_torch::<layer>.<what>`, in the namespace of the package's
+    custom ops."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _Operator(name)
 
 
 @contextlib.contextmanager

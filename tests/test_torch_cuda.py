@@ -868,3 +868,41 @@ def test_tool_train_profile_on_cuda(cuda):
     assert tk.LAUNCHES == before + 3 + 2  # the iterations and two warm-up calls
     assert line["impl"] == "cuda" and line["case"] == "apply"
     assert np.isfinite(line["ms_per_step"]) and line["ms_per_step"] > 0
+
+
+def test_k1_backward_span_holds_its_launches(cuda):
+    """A K1 train step under the profiler: K1's backward is one program span
+    on the autograd engine's device thread, and the device work launched
+    inside it is tied to it. The prediction is a span too. Neither is drawn
+    on the device's timeline, where it would read as work."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from curl_tpu_torch.models import TriSpacePolyNet
+    from curl_tpu_torch.models import backbone as bb
+    from curl_tpu_torch.train import state as state_lib
+    from curl_tpu_torch.train import steps as steps_lib
+
+    model = TriSpacePolyNet(backbone=bb.TINY, device="cuda",
+                            generator=torch.Generator().manual_seed(3))
+    state = state_lib.TrainState(model, state_lib.make_optimizer(
+        model.parameters(), state_lib.onecycle_schedule(10, 1)))
+    rng = np.random.default_rng(3)
+    batch = {"input_img": rng.integers(0, 256, (4, 64, 64, 3), dtype=np.uint8),
+             "output_img": rng.integers(0, 256, (4, 64, 64, 3), dtype=np.uint8),
+             "mask": np.ones((4, 64, 64, 1), np.uint8)}
+    batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    step = steps_lib.make_train_step(augment=False)
+    step(state, batch, None)  # builds the kernel outside the trace
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(state, batch, None)
+        torch.cuda.synchronize()
+    events = prof.events()
+    (bwd,) = [e for e in events if e.name == "curl_tpu_torch::k1.backward"]
+    (predict,) = [e for e in events if e.name == "curl_tpu_torch::model.predict"]
+    assert bwd.thread != predict.thread  # the backward runs on the engine's thread
+    assert bwd.device_time_total > 0 and predict.device_time_total > 0
+    assert not [e.name() for e in prof.profiler.kineto_results.events()
+                if e.device_type() == DeviceType.CUDA
+                and e.name().startswith("curl_tpu_torch::")]
