@@ -20,6 +20,19 @@ Phases, each of which fails the run:
      least 99.9% of the values equal, none more than 1 apart).
   3. Gradients of the coefficients through K1's autograd.Function against
      plain autograd (64x64).
+     (b) K1's backward kernel (csrc/trispace_backward.cu) through the
+         autograd.Function at the training path's shape, batch 32 of
+         256x256 at degree 4 (spatial), fp32 and bf16 images, composite on
+         and off: one backward kernel call and no plain recompute each; the
+         coefficient gradients within 1e-2 of the plain autograd's (largest
+         difference over the largest gradient, a stack's worst) and, with
+         composite off, no further in relative L2 from the float64 ones
+         than 3x the plain float32 version's (or 1e-5); with composite on,
+         the values where the kernel's and the plain version's composite
+         sums lie on different sides of a clip bound counted, and the
+         difference again with the upstream gradient zeroed there; the
+         backward's times through the autograd.Function and bare, the plain
+         recompute's, and the operation bound.
   4. The polynomial main path: Enhancer over TriSpacePolyNet with
      EfficientNetV2-rw_t at full width (random weights from a seeded
      torch.Generator), 320x320 predict, 1920x1080 target, batch 8, u8 wire
@@ -54,11 +67,12 @@ Phases, each of which fails the run:
          stack, batch 32 of 256x256x15), with the gradient contiguous,
          permuted and expanded, for `clip` and `floor_at`; bf16 and fp64 on
          a smaller shape.
-     (a) One train step through K1 (kernel forward, plain backward) and one
+     (a) One train step through K1 (kernel forward and backward) and one
          through the plain path from a copy with the same weights (seed 0),
          augment off, on the same u8 batch: losses within rel 1e-4, the
          head's last-layer gradient within relative L2 1e-3, BN buffers
-         equal.
+         equal; the kernel step one backward kernel call and no plain
+         recompute, the plain step neither.
      (b) Training on a synthetic dataset: 64 training and 32 validation
          pairs of 320x400 u8 from numpy.random.default_rng((seed, index)),
          the target a fixed tone curve of the input, masks ~90% ones. With
@@ -67,7 +81,8 @@ Phases, each of which fails the run:
          on a Loader subclass defined here that synthesizes each example from
          its index. 2 epochs of 2 steps, an eval pass and a checkpoint after
          each. Every epoch's loss is finite, K1's launch count (0 just before,
-         read just after) equals the train steps plus the eval batches, K2
+         read just after) equals the train steps plus the eval batches, its
+         backward kernel's the train steps with no plain recompute, K2
          is not launched and K3 is (every clip's backward); the checkpoint
          names are `checkpoint_name` of the
          logged validation metrics; a fresh Trainer with auto_resume restores
@@ -122,7 +137,8 @@ Phases, each of which fails the run:
          polynomial, phase 10b for the curve) within 5e-4, each rank launched
          K1 (or K2) once per train step and eval batch, and the parameters end
          equal. Step times are printed beside (a)'s; they measure the
-         transport.
+         transport. In (a) and (b) each polynomial rank calls K1's backward
+         kernel once a train step and never the plain recompute.
      (c) sharded_trispace_residual over two gloo ranks on cuda:0 at 1920x1080
          batch 8, fp32 residual and u8-wire composite: two K1 launches a rank,
          within 1e-6 (fp32, bitwise or not printed) and 1 level (u8) of one
@@ -137,8 +153,9 @@ Phases, each of which fails the run:
          replay, and enhance_chained's replay per batch (K = 4), fp32 and bf16
          in turns.
      (b) Training: one step of batch 32 of 256x256 at bf16 through K1's
-         autograd.Function (one K1 launch, K3 launches, a bf16 stem
-         convolution) within 5% of the fp32 step's loss from the same
+         autograd.Function (one K1 launch, one backward kernel call and no
+         plain recompute, K3 launches, a bf16 stem convolution) within 5%
+         of the fp32 step's loss from the same
          weights, fp32 parameters after it; then the
          bf16 step's times beside phase 9c's.
  14. The plain residual's two polynomial forms (`form="acc"` and "matmul",
@@ -209,7 +226,8 @@ Phases, each of which fails the run:
          picks it); the 8K output within 2e-4 of the same frame applied in
          bands of 1,080 rows.
      (c) fullres_backward_probe --batch 2 --iters 3: both losses finite and
-         within 1e-4 relative; 4 K1 launches and K3's.
+         within 1e-4 relative; 4 K1 launches, 4 backward kernel calls, no
+         plain recompute, and K3's.
      (d) poly_grad_probe: `check` ok, then `fwd` and `fwdbwd` of both forms.
      (e) serve_sweep --quick in a child process: two rows, no `error`.
      (f) scale_smoke --n 64 --epochs 1 (the best checkpoint's validation
@@ -223,10 +241,13 @@ Phases, each of which fails the run:
          apply and each ablate_*, and never in backbone, loss, ssim, hsv,
          lab and augment; K2 never; K3 in full, full_noaug and apply.
 
-The kernels' record carries, besides each kernel's main-path launches and
-times, the launches of phases 12 and 13 and the backbone + head replay times
-at fp32 and bf16 (`fp32_backbone_ms`, `bf16_backbone_ms`), and phase 14's
-times at 512x512 batch 8 (`ms_512`, `plain_acc_ms_512`, `plain_matmul_ms_512`),
+The kernels' record carries an entry for each of K1, K2, K3 and K1's
+backward kernel (phase 3b's times, bound and gradient distances, and its
+launches in phases 9b, 12 and 13b); besides each kernel's main-path
+launches and times, it carries the launches of phases 12 and 13 and the
+backbone + head replay times at fp32 and bf16 (`fp32_backbone_ms`,
+`bf16_backbone_ms`), and phase 14's times at 512x512 batch 8 (`ms_512`,
+`plain_acc_ms_512`, `plain_matmul_ms_512`),
 and phase 15's numbers by degree and by knot count (`k1_ms_by_degree`,
 `k1_bare_ms_by_degree`, `k1_bound_ms_by_degree`, `k2_ms_by_knots`,
 `k2_bare_ms_by_knots`, `k2_wrapper_gap_ms_by_knots`, ...).
@@ -302,6 +323,19 @@ KERNEL_SOURCE = "curl_tpu_torch/csrc/trispace_kernel.cu"
 KERNEL_REPLACES = "curl_tpu/ops/pallas/trispace_kernel.py:70"
 CURVE_SOURCE = "curl_tpu_torch/csrc/curve_kernel.cu"
 CURVE_REPLACES = "curl_tpu/ops/pallas/curve_kernel.py:60"
+BACKWARD_SOURCE = "curl_tpu_torch/csrc/trispace_backward.cu"
+BACKWARD_REPLACES = ("none: the JAX package's custom VJP differentiates the XLA residual "
+                     "(curl_tpu/ops/pallas/trispace_kernel.py:279)")
+# Phase 3b: K1's backward kernel against the plain autograd at the training
+# shape. A clip of img + residual that one float32 path meets and the other
+# misses moves a sum by a whole pixel's term: with composite on, at batch 32
+# of 256x256, ~1.5e-3 of the largest gradient (kernel_probe --backward).
+# A wrong vector-Jacobian product moves every sum. So the largest difference
+# is held to 1e-2 of the largest gradient, and with composite off (no clip
+# of the sum) the distance from float64 to 3x the plain version's.
+BACKWARD_MAX_REL = 1e-2
+BACKWARD_FLOAT64_RATIO = 3.0
+BACKWARD_FLOAT64_FLOOR = 1e-5
 CLIP_SOURCE = "curl_tpu_torch/csrc/tie_clip_grad.cu"
 CLIP_REPLACES = ("none: jnp.clip's gradient, which XLA fuses (e.g. curl_tpu/ops/curves.py:69, "
                  "the ramp clip)")
@@ -662,6 +696,121 @@ def check_gradients(tk, dev, rng) -> None:
         f"(max |g| {max(float(x.grad.abs().max()) for x in a):.3e})")
 
 
+def clip_sides(u):
+    """The composite clip's branch for each value of img + residual: 0
+    below 0, 1 at 0, 2 inside, 3 at 1, 4 above 1."""
+    return (u >= 0).int() + (u > 0).int() + (u >= 1).int() + (u > 1).int()
+
+
+def check_backward_kernel(tk, dev, card) -> dict:
+    """Phase 3b. Returns the backward kernel's record: times, bound and, a
+    case (dtype, composite), the gradient distances."""
+    import torch
+
+    from curl_tpu_torch.tools import kernel_probe
+
+    rng = np.random.default_rng((SEED, 3))  # phase 3b's own: later phases' draws stay
+    b, h, w = TRAIN_BATCH, CROP, CROP
+    img = image(rng, b, h, w, dev)
+    cs = coefficients(rng, b, 126, dev)
+    weight = torch.from_numpy(rng.normal(size=img.shape).astype(np.float32)).to(dev)
+
+    def grads(fn, x, upstream, dtype, composite):
+        leaves = [c.to(dtype).clone().requires_grad_() for c in cs]
+        return torch.autograd.grad(fn(x, *leaves, composite=composite), leaves, upstream)
+
+    def max_rel(a, e) -> float:
+        return max(float((x - y).abs().max() / y.abs().max()) for x, y in zip(a, e))
+
+    def l2(a, e) -> float:
+        return max(float((x.double() - y).norm() / y.norm()) for x, y in zip(a, e))
+
+    kernel, plain = tk.fused_trispace_residual, tk.fused_trispace_residual_reference
+    with torch.no_grad():
+        flips = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            xf = img.to(dtype).float()
+            flips[dtype] = (clip_sides(xf + kernel(xf, *cs))
+                            != clip_sides(xf + plain(xf, *cs)))
+    cases = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x, up = img.to(dtype), weight.to(dtype)
+        for composite in (True, False):
+            name = f"{str(dtype).split('.')[-1]}_{'composite' if composite else 'residual'}"
+            before = tk.BACKWARD_LAUNCHES, tk.PLAIN_BACKWARDS
+            got = grads(kernel, x, up, torch.float32, composite)
+            counts = tk.BACKWARD_LAUNCHES - before[0], tk.PLAIN_BACKWARDS - before[1]
+            ref = grads(plain, x, up, torch.float32, composite)
+            exact = grads(plain, x.double(), up.double(), torch.float64, composite)
+            case = {"max_rel_diff": max_rel(got, ref), "float64_rel_l2": l2(got, exact),
+                    "plain_float64_rel_l2": l2(ref, exact), "calls": list(counts)}
+            if composite:
+                kept = up * ~flips[dtype]
+                case["clip_flip_values"] = int(flips[dtype].sum())
+                case["max_rel_diff_without_flips"] = max_rel(
+                    grads(kernel, x, kept, torch.float32, True),
+                    grads(plain, x, kept, torch.float32, True))
+            log(f"  {name}: {case}")
+            cases[name] = case
+            if counts != (1, 0):
+                raise AssertionError(f"{name}: expected one backward kernel call and no plain "
+                                     f"recompute, counted {counts}")
+            if case["max_rel_diff"] > BACKWARD_MAX_REL:
+                raise AssertionError(f"{name}: the backward kernel's gradients are "
+                                     f"{case['max_rel_diff']:.3e} from the plain ones")
+            if not composite and case["float64_rel_l2"] > max(
+                    BACKWARD_FLOAT64_RATIO * case["plain_float64_rel_l2"], BACKWARD_FLOAT64_FLOOR):
+                raise AssertionError(f"{name}: the backward kernel is farther from float64 "
+                                     f"than the plain float32 version")
+            del got, ref, exact
+    del flips
+
+    leaves = [c.clone().requires_grad_() for c in cs]
+    times = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x, up = img.to(dtype), weight.to(dtype)
+        out = kernel(x, *leaves, composite=True)
+        times[dtype] = cuda_ms(lambda: torch.autograd.grad(out, leaves, up, retain_graph=True),
+                               20)
+        del out
+    packed = tk.pack_coefficients(*cs)
+    bare_ms = cuda_ms(lambda: tk.coefficient_grads(img, weight, packed, 4, 0, True, h, w, True),
+                      20)
+    plain_ms = cuda_ms(lambda: grads(plain, img, weight, torch.float32, True), 3, warmup=1)
+    bound_ms = kernel_probe.BACKWARD_FLOP_PER_PIXEL * b * h * w / PEAK_FP32_FLOPS * 1e3
+    log(f"  K1 backward fp32 composite, batch {b} of {h}x{w}: {times[torch.float32]:.4f} ms "
+        f"through the autograd.Function (bf16 {times[torch.bfloat16]:.4f} ms), bare "
+        f"{bare_ms:.4f} ms; plain recompute {plain_ms:.3f} ms; bound {bound_ms:.4f} ms "
+        f"({kernel_probe.BACKWARD_FLOP_PER_PIXEL:,} FLOP/px at 67 TFLOP/s, operations), "
+        f"{100 * bound_ms / bare_ms:.1f}% of the bare time  [{card}]")
+    return {"ms": times[torch.float32], "ms_bf16": times[torch.bfloat16], "bare_ms": bare_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "cases": cases}
+
+
+class Count:
+    """One of K1's backward counters (`BACKWARD_LAUNCHES`, the backward
+    kernel's calls; `PLAIN_BACKWARDS`, the plain recomputes) under the
+    `LAUNCHES` name that the phases set to 0 and read."""
+
+    def __init__(self, mod, attr: str):
+        self.mod, self.attr = mod, attr
+
+    @property
+    def LAUNCHES(self) -> int:
+        return getattr(self.mod, self.attr)
+
+    @LAUNCHES.setter
+    def LAUNCHES(self, value: int) -> None:
+        setattr(self.mod, self.attr, value)
+
+
+def training_counters(tk, ck, clk) -> dict:
+    """The training phases' counts: K1, K2, K3, and K1's backward kernel
+    calls (K1B) and plain recomputes (K1P)."""
+    return {"K1": tk, "K2": ck, "K3": clk, "K1B": Count(tk, "BACKWARD_LAUNCHES"),
+            "K1P": Count(tk, "PLAIN_BACKWARDS")}
+
+
 def check_curve_gradients(ck, dev, rng) -> None:
     """Phase 6."""
     import torch
@@ -958,6 +1107,9 @@ def check_train_step(cfg, impl_attr: str, batch, counters, dev, knot_counts=None
             or min(k_n["K3"], p_n["K3"]) == 0):
         raise AssertionError(f"expected one forward kernel launch and K3 launches in both, "
                              f"counted {k_n} and {p_n}")
+    if (k_n["K1B"], k_n["K1P"], p_n["K1B"], p_n["K1P"]) != (k_n["K1"], 0, 0, 0):
+        raise AssertionError(f"expected K1's backward kernel once for each K1 launch and no "
+                             f"plain recompute, counted {k_n} and {p_n}")
 
 
 def train_and_resume(model_name: str, epochs: int, pil: bool, tmp, counters) -> tuple:
@@ -1017,6 +1169,9 @@ def train_and_resume(model_name: str, epochs: int, pil: bool, tmp, counters) -> 
     expect = {k: (steps + eval_batches if k == kernel else 0) for k in ("K1", "K2")}
     if {k: launches[k] for k in expect} != expect or launches["K3"] == 0:
         raise AssertionError(f"expected {expect} and K3 launches, got {launches}")
+    if (launches["K1B"], launches["K1P"]) != (steps if kernel == "K1" else 0, 0):
+        raise AssertionError(f"expected K1's backward kernel once a train step and no plain "
+                             f"recompute, got {launches}")
 
     ckpt_dir = log_dir / "checkpoints"
     names = [p.split("/")[-1] for p, _ in ckpt_lib.list_checkpoints(str(ckpt_dir))]
@@ -1677,7 +1832,7 @@ def cli_rank(args: list) -> int:
         fit(self)
 
     loop.Trainer.fit = recorded_fit
-    counters = {"K1": tk, "K2": ck, "K3": clk}
+    counters = training_counters(tk, ck, clk)
     for mod in counters.values():
         mod.LAUNCHES = 0
     cli.main(args)
@@ -1785,6 +1940,8 @@ def distribution(torch, card, phase_losses: dict) -> dict:
             raise AssertionError(f"expected one checkpoint, found {ckpts}")
         if one["launches"]["K1"] != steps + evals or one["launches"]["K2"] != 0:
             raise AssertionError(f"expected {steps + evals} K1 launches and no K2")
+        if (one["launches"]["K1B"], one["launches"]["K1P"]) != (steps, 0):
+            raise AssertionError(f"expected {steps} backward kernel calls and no plain recompute")
         result = {"nccl": one, "gloo": {}}
         reference = {"trispace": one["losses"], "curve": phase_losses["curve"][:DIST_EPOCHS]}
         for family, kernel in (("trispace", "K1"), ("curve", "K2")):
@@ -1811,6 +1968,10 @@ def distribution(torch, card, phase_losses: dict) -> dict:
             for rec in ranks:
                 if rec["launches"][kernel] != steps + evals or rec["launches"][other] != 0:
                     raise AssertionError(f"expected {steps + evals} {kernel} launches a rank")
+                backward = steps if kernel == "K1" else 0
+                if (rec["launches"]["K1B"], rec["launches"]["K1P"]) != (backward, 0):
+                    raise AssertionError(f"expected {backward} backward kernel calls a rank and "
+                                         f"no plain recompute")
             result["gloo"][family] = ranks
         log(f"  gloo and NCCL step times measure the transport (gloo copies through the host), "
             f"not the model: NCCL 1 rank {one['step_ms']} ms; gloo 2 ranks "
@@ -1956,6 +2117,9 @@ def bf16_training(torch, dev, batch, counters, card, fp32_times: dict) -> dict:
         raise AssertionError("the bf16 step's loss is not finite or not near the fp32 step's")
     if launches["bf16"]["K1"] != 1 or launches["bf16"]["K2"] != 0 or launches["bf16"]["K3"] == 0:
         raise AssertionError("expected one K1 launch and K3 launches in the bf16 step")
+    if any((n["K1B"], n["K1P"]) != (1, 0) for n in launches.values()):
+        raise AssertionError(f"expected one backward kernel call and no plain recompute a "
+                             f"step, counted {launches}")
     if not all(p.dtype == torch.float32 and bool(torch.isfinite(p).all())
                for p in bf16_model.parameters()):
         raise AssertionError("the bf16 step left non-fp32 or non-finite parameters")
@@ -1967,7 +2131,8 @@ def bf16_training(torch, dev, batch, counters, card, fp32_times: dict) -> dict:
         f"img/s; peak {t['peak_gib']:.2f} GiB; phase 9c fp32: forward "
         f"{fp32_times['forward_ms']:.3f}, backward {fp32_times['backward_ms']:.3f}, optimizer "
         f"{fp32_times['optimizer_ms']:.3f} ms, wall {fp32_times['wall_ms']:.3f} ms/step  [{card}]")
-    return {"launches": launches["bf16"]["K1"], "times": t, "rel_loss_gap": rel}
+    return {"launches": launches["bf16"]["K1"], "backward_launches": launches["bf16"]["K1B"],
+            "times": t, "rel_loss_gap": rel}
 
 
 def residual_forms(torch, tk, dev, rng, card) -> dict:
@@ -2410,7 +2575,8 @@ def bench_modes(torch, dev, card: str, kind: str, ceiling_11a: float) -> dict:
 def ported_tools(torch, card: str, counters: dict) -> dict:
     """Phase 17: each of the JAX system's tools in its port
     (`curl_tpu_torch/tools/`), as a user runs it, held to its own check;
-    `counters` holds K1, K2 and K3. Returns each tool's numbers."""
+    `counters` holds K1, K2, K3 and K1's backward counts
+    (`training_counters`). Returns each tool's numbers."""
     from curl_tpu_torch.tools import (curve_bench, fullres_backward_probe, infer_8k_probe,
                                       poly_grad_probe, scale_smoke)
 
@@ -2469,7 +2635,7 @@ def ported_tools(torch, card: str, counters: dict) -> dict:
         f"losses {losses}; launches {n}  [{card}]")
     if not (all(np.isfinite(losses)) and abs(losses[1] - losses[0]) <= 1e-4 * abs(losses[0])):
         raise AssertionError(f"fullres_backward_probe: losses {losses}")
-    if n["K1"] != 4 or n["K3"] < 1:
+    if n["K1"] != 4 or n["K1B"] != 4 or n["K1P"] != 0 or n["K3"] < 1:
         raise AssertionError(f"fullres_backward_probe: expected 4 K1 launches (a warm-up and 3 "
                              f"steps of the cuda run) and K3's, counted {n}")
     torch.cuda.empty_cache()
@@ -2643,6 +2809,10 @@ def main() -> int:
 
     log("phase 3: K1 gradients through the autograd.Function")
     check_gradients(tk, dev, rng)
+    log(f"  (b) K1's backward kernel at the training shape, batch {TRAIN_BATCH} of "
+        f"{CROP}x{CROP}, degree 4")
+    backward = check_backward_kernel(tk, dev, card)
+    torch.cuda.empty_cache()
 
     log(f"phase 4: polynomial main path, rw_t {PREDICT}^2 predict -> {WIDTH}x{HEIGHT} "
         f"batch {BATCH}, u8 wire")
@@ -2816,7 +2986,7 @@ def main() -> int:
             + ("written as PNGs, trained through cli.main (PIL imports)" if pil else
                "synthesized by a Loader subclass, trained through Trainer (no PIL)"))
         batch = training_batch(torch, dev)
-        train_counters = dict(counters, K3=clk)
+        train_counters = training_counters(tk, ck, clk)
         train_times, epoch_losses = {}, {}
         for phase, name, impl_attr, epochs in ((9, "trispace", "residual_impl", 2),
                                                (10, "curve", "curve_impl", 1)):
@@ -2886,7 +3056,7 @@ def main() -> int:
     bf16_serve = bf16_serving(torch, dev, rng, counters, card)
     torch.cuda.empty_cache()
     log("  (b) training")
-    bf16_train = bf16_training(torch, dev, batch, dict(counters, K3=clk), card,
+    bf16_train = bf16_training(torch, dev, batch, train_counters, card,
                                train_times["trispace"][0])
     torch.cuda.empty_cache()
     log(f"phase 14: the plain residual's acc and matmul forms against K1, batch {FORM_BATCH} "
@@ -2896,8 +3066,8 @@ def main() -> int:
     log(f"phase 15: polynomial orders {SERVE_DEGREES} and 96 knots a curve through the entry "
         f"points; K1 at degrees {OTHER_DEGREES} and K2 at {MANY_KNOTS} knots")
     t0 = time.perf_counter()
-    other = other_degrees_and_knots(torch, dev, rng, counters, dict(counters, K3=clk), batch,
-                                    card, degree_builds)
+    other = other_degrees_and_knots(torch, dev, rng, counters, train_counters, batch, card,
+                                    degree_builds)
     log(f"  phase 15 took {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     log("phase 16: bench_torch.py, the port's benchmark, in each of its modes")
@@ -2908,7 +3078,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     log("phase 17: the JAX system's tools in their port, curl_tpu_torch/tools/")
     t0 = time.perf_counter()
-    tools = ported_tools(torch, card, dict(counters, K3=clk))
+    tools = ported_tools(torch, card, train_counters)
     log(f"  phase 17 took {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     # K3 runs only on the training paths: its launches are theirs.
@@ -2980,6 +3150,27 @@ def main() -> int:
             "k2_max_abs_err_by_knots": by_key(other["k2_err"]),
             "k2_launches_by_knots": by_key(other["k2_launches"]),
             "k2_wrapper_gap_ms_by_knots": by_key(other["k2_gap_ms"]),
+        },
+        {
+            "name": "trispace_backward",
+            "route": "cuda",
+            "source": BACKWARD_SOURCE,
+            "replaces": BACKWARD_REPLACES,
+            "launches": train_times["trispace"][1]["K1B"],
+            "max_rel_diff": backward["cases"]["float32_composite"]["max_rel_diff"],
+            "ms": backward["ms"],
+            "ms_bf16": backward["ms_bf16"],
+            "bare_ms": backward["bare_ms"],
+            "plain_ms": backward["plain_ms"],
+            "bound_ms": backward["bound_ms"],
+            "bound_by": "operations",
+            "library_ms": None,
+            "train_launches": train_times["trispace"][1]["K1B"],
+            "train_ms": backward["ms"],
+            "nccl_cli_launches": dist["nccl"]["launches"]["K1B"],
+            "gloo_cli_launches": [r["launches"]["K1B"] for r in dist["gloo"]["trispace"]],
+            "bf16_train_launches": bf16_train["backward_launches"],
+            "precision": backward["cases"],
         },
         {
             "name": "tie_clip_grad",

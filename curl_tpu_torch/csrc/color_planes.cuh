@@ -172,24 +172,39 @@ __device__ __forceinline__ void lab_from_rgb(float r, float g, float b,
   b_out = (div<By110>(b_) + 1.0f) / 2.0f;
 }
 
-// Renormalized CIELab -> sRGB.
-__device__ __forceinline__ void rgb_from_lab(float l_, float a_, float b_,
-                                             float& r_out, float& g_out, float& b_out) {
+// rgb_from_lab's intermediates, which K1's backward (trispace_backward.cu)
+// reads for its vector-Jacobian product: the arguments of lab_finv and the
+// linear RGB that srgb_encode takes.
+struct LabState {
+  float fx, fy, fz;
+  float lin[3];
+};
+
+// Renormalized CIELab -> sRGB, its intermediates kept in `st`.
+__device__ __forceinline__ void rgb_from_lab_state(float l_, float a_, float b_, LabState& st,
+                                                   float& r_out, float& g_out, float& b_out) {
   l_ = l_ * 100.0f;
   a_ = (a_ * 2.0f - 1.0f) * 110.0f;
   b_ = (b_ * 2.0f - 1.0f) * 110.0f;
-  const float fy = div<By116>(l_ + 16.0f);
-  const float fx = fy + div<By500>(a_);
-  const float fz = fy - div<By200>(b_);
-  const float x = lab_finv(fx) * 0.950456f;
-  const float y = lab_finv(fy) * 1.0f;
-  const float z = lab_finv(fz) * 1.088754f;
-  const float r = x * 3.2404542f + y * -1.5371385f + z * -0.4985314f;
-  const float g = x * -0.9692660f + y * 1.8760108f + z * 0.0415560f;
-  const float b = x * 0.0556434f + y * -0.2040259f + z * 1.0572252f;
-  r_out = srgb_encode(r);
-  g_out = srgb_encode(g);
-  b_out = srgb_encode(b);
+  st.fy = div<By116>(l_ + 16.0f);
+  st.fx = st.fy + div<By500>(a_);
+  st.fz = st.fy - div<By200>(b_);
+  const float x = lab_finv(st.fx) * 0.950456f;
+  const float y = lab_finv(st.fy) * 1.0f;
+  const float z = lab_finv(st.fz) * 1.088754f;
+  st.lin[0] = x * 3.2404542f + y * -1.5371385f + z * -0.4985314f;
+  st.lin[1] = x * -0.9692660f + y * 1.8760108f + z * 0.0415560f;
+  st.lin[2] = x * 0.0556434f + y * -0.2040259f + z * 1.0572252f;
+  r_out = srgb_encode(st.lin[0]);
+  g_out = srgb_encode(st.lin[1]);
+  b_out = srgb_encode(st.lin[2]);
+}
+
+// Renormalized CIELab -> sRGB.
+__device__ __forceinline__ void rgb_from_lab(float l_, float a_, float b_,
+                                             float& r_out, float& g_out, float& b_out) {
+  LabState st;
+  rgb_from_lab_state(l_, a_, b_, st, r_out, g_out, b_out);
 }
 
 __device__ __forceinline__ float safe_recip(float x) {
@@ -227,25 +242,43 @@ __device__ __forceinline__ float hue_ramp(float h360, float theta, float width) 
   return clampf(h360 - theta, 0.0f, width);
 }
 
+// rgb_from_hsv's terms before its output clip, which K1's backward reads:
+// the clamped inputs, h in degrees, the ramps' floor and slopes, the six
+// hue ramps and the unclipped r, g, b.
+struct HsvRamps {
+  float h, s, v, h360, vmin, m_dn, m_up;
+  float p0, p60, p120, p180, p240, p300;
+  float r, g, b;
+};
+
+__device__ __forceinline__ HsvRamps hsv_ramps(float h, float s, float v) {
+  HsvRamps t;
+  t.h = clampf(h, 0.0f, 1.0f);
+  t.s = clampf(s, 0.0f, 1.0f);
+  t.v = clampf(v, 0.0f, 1.0f);
+  t.h360 = t.h * 360.0f;
+  t.vmin = t.v * (1.0f - t.s);
+  t.m_dn = div<By60>(t.vmin - t.v);
+  t.p60 = hue_ramp(t.h360, 60.0f, 60.0f);
+  t.p240 = hue_ramp(t.h360, 240.0f, 60.0f);
+  t.r = t.v + t.p60 * t.m_dn + t.p240 * (-1.0f * t.m_dn);
+  t.m_up = div<By60>(t.v - t.vmin);
+  t.p0 = hue_ramp(t.h360, 0.0f, 60.0f);
+  t.p180 = hue_ramp(t.h360, 180.0f, 60.0f);
+  t.g = t.vmin + t.p0 * t.m_up + t.p180 * (-1.0f * t.m_up);
+  t.p120 = hue_ramp(t.h360, 120.0f, 60.0f);
+  t.p300 = hue_ramp(t.h360, 300.0f, 60.0f);
+  t.b = t.vmin + t.p120 * t.m_up + t.p300 * (-1.0f * t.m_up);
+  return t;
+}
+
 // HSV -> RGB by clamped hue ramps, inputs and outputs clamped to [0, 1].
 __device__ __forceinline__ void rgb_from_hsv(float h, float s, float v,
                                              float& r_out, float& g_out, float& b_out) {
-  h = clampf(h, 0.0f, 1.0f);
-  s = clampf(s, 0.0f, 1.0f);
-  v = clampf(v, 0.0f, 1.0f);
-  const float h360 = h * 360.0f;
-  const float vmin = v * (1.0f - s);
-  const float m_dn = div<By60>(vmin - v);
-  const float r = v + hue_ramp(h360, 60.0f, 60.0f) * m_dn
-                + hue_ramp(h360, 240.0f, 60.0f) * (-1.0f * m_dn);
-  const float m_up = div<By60>(v - vmin);
-  const float g = vmin + hue_ramp(h360, 0.0f, 60.0f) * m_up
-                + hue_ramp(h360, 180.0f, 60.0f) * (-1.0f * m_up);
-  const float b = vmin + hue_ramp(h360, 120.0f, 60.0f) * m_up
-                + hue_ramp(h360, 300.0f, 60.0f) * (-1.0f * m_up);
-  r_out = clampf(r, 0.0f, 1.0f);
-  g_out = clampf(g, 0.0f, 1.0f);
-  b_out = clampf(b, 0.0f, 1.0f);
+  const HsvRamps t = hsv_ramps(h, s, v);
+  r_out = clampf(t.r, 0.0f, 1.0f);
+  g_out = clampf(t.g, 0.0f, 1.0f);
+  b_out = clampf(t.b, 0.0f, 1.0f);
 }
 
 }  // namespace curl_planes

@@ -19,6 +19,13 @@ that header's text for one polynomial degree D >= 1:
 `build.py` writes the header beside the library it builds, so each degree
 has a library of its own (`libtrispace_kernel_d<D>-<hash>.so`) and the
 header's text is part of its hash.
+
+K1's backward (`csrc/trispace_backward.cu`) includes the same header and a
+second one, `backward_header(D)` (`trispace_backward_tables.h`), which
+holds the transpose of the y-fold: `kUnfoldY[j]` = (q, e) for monomial j of
+`poly.monomial_powers(D, 5)`, the monomial q of `poly.monomial_powers(D, 4)`
+and the power e of y whose product it is. The forward's header stays as it
+is, so its library and its hash do not change with the backward.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ import math
 from curl_tpu_torch.ops import poly
 
 HEADER = "trispace_tables.h"
+BACKWARD_HEADER = "trispace_backward_tables.h"
 
 # (pixels per thread, threads per block, blocks per SM that
 # `__launch_bounds__` sizes registers for) by degree, the fastest of
@@ -110,6 +118,14 @@ def fold_map(degree: int) -> tuple[tuple[int, ...], ...]:
     return tuple(map(tuple, fold))
 
 
+def unfold_map(degree: int) -> tuple[tuple[int, int], ...]:
+    """For each monomial j of (c1, c2, c3, x, y), the (q, e) with
+    `fold_map(degree)[q][e] == j`: the monomial q of (c1, c2, c3, x) and the
+    power e of y whose product it is."""
+    index4 = {p: i for i, p in enumerate(poly.monomial_powers(degree, 4))}
+    return tuple((index4[p[:4]], p[4]) for p in poly.monomial_powers(degree, 5))
+
+
 def _rows(rows, per_line: int) -> str:
     cells = ["{" + ", ".join(map(str, r)) + "}," for r in rows]
     return "\n".join("    " + " ".join(cells[i:i + per_line])
@@ -174,5 +190,26 @@ constexpr int kTarget3[{len(chain3)}] = {{
 // memory (cached in L1): constant memory serializes such reads.
 __device__ const int16_t kFoldY[{len(fold)}][{degree + 1}] = {{
 {_rows(fold, 5)}
+}};
+"""
+
+
+def backward_header(degree: int) -> str:
+    """The text of `trispace_backward_tables.h` for `degree`."""
+    if degree < 1:
+        raise ValueError(f"K1 is built for polynomial degrees >= 1; got {degree}")
+    unfold = unfold_map(degree)
+    return f"""\
+// Generated by curl_tpu_torch/ops/kernels/poly_tables.py for degree {degree}.
+#pragma once
+
+#include <cstdint>
+
+// The transpose of kFoldY: kUnfoldY[j] = {{q, e}} for monomial j of
+// poly.monomial_powers({degree}, 5), the monomial q of poly.monomial_powers({degree}, 4)
+// times y^e. The backward's second pass expands each row's sums over the
+// C(D+4, 4) monomials of (c1, c2, c3, x) into the C(D+5, 5) coefficients by it.
+__device__ const int16_t kUnfoldY[{len(unfold)}][2] = {{
+{_rows(unfold, 10)}
 }};
 """

@@ -4,7 +4,15 @@ torch version.
 `fused_trispace_residual` launches `csrc/trispace_kernel.cu` for a CUDA
 tensor, and takes the plain version, `fused_trispace_residual_reference`, for
 a tensor on the CPU. A CUDA tensor never falls back: the kernel builds and
-launches, or the call raises. The backward pass runs autograd through the
+launches, or the call raises.
+
+The backward to the coefficients on a CUDA tensor is a kernel of its own,
+`csrc/trispace_backward.cu` (`coefficient_grads`), one library a degree
+beside the forward's, built at its first backward: the three coefficient
+stacks' gradients in one pass over the pixels, at degrees 1-9 and for
+float32 and bfloat16 images (`check_backward_supported` names what it does
+not take; nothing falls back). The image's gradient, which training never
+asks for, and the whole backward on a CPU tensor run autograd through the
 plain version, as the JAX package runs its kernel's backward through XLA.
 
 A uint8 image (composite only) is the u8 wire: the kernel reads it as
@@ -24,7 +32,9 @@ symbolic under export.
 
 `LAUNCHES` counts kernel launches in the op's real implementation
 (plain-version calls are not counted), so a run can show that its main path
-went through the kernel.
+went through the kernel. `BACKWARD_LAUNCHES` counts the backward kernel's
+calls, and `PLAIN_BACKWARDS` the plain recomputes for an image's gradient
+on a CUDA tensor.
 
 `pack_coefficients` and `launch_packed` are the op's two steps, the host
 packing and the bare launch, for timing the kernel apart from the host work
@@ -47,11 +57,21 @@ from curl_tpu_torch.ops.kernels import build, poly_tables
 from curl_tpu_torch.utils.profiling import span
 
 LAUNCHES = 0
+BACKWARD_LAUNCHES = 0
+PLAIN_BACKWARDS = 0
 
 _SOURCE = "trispace_kernel"
+_BACKWARD_SOURCE = "trispace_backward"
 _INT32_MAX = 2**31 - 1
 # Storage type -> the kernel's dtype code.
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2}
+# The backward's grid.y takes at most this many images a launch.
+_MAX_GRID_Y = 65535
+# The backward kernel's degrees and storage types. Its shared memory holds a
+# tile's folded coefficients, 192 x C(D+4, 4) bytes besides 77,056: past
+# degree 9 more than the 227 KB a block may have.
+BACKWARD_DEGREES = range(1, 10)
+_BACKWARD_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _resolve_tile(img: Tensor, row0, static_tile, tile):
@@ -85,7 +105,8 @@ def fused_trispace_residual_reference(
     `ops.color_planes`, the chained polynomial of `ops.poly`, the coordinate
     planes of `ops.coords`; the result in img's dtype. A uint8 image takes
     the u8 wire around it: `wire.quantize_u8` of the fp32 composite of
-    `wire.norm_u8(img)`."""
+    `wire.norm_u8(img)`. A float64 image takes the same steps in float64,
+    the yardstick of the float32 paths' gradients."""
     if img.dtype == torch.uint8:
         if not composite:
             raise ValueError("a uint8 image takes composite=True (the u8 wire)")
@@ -94,11 +115,12 @@ def fused_trispace_residual_reference(
             spatial=spatial, total_h=total_h, total_w=total_w, composite=True,
         ))
     b, h, w, _ = img.shape
-    x = img.float()
+    compute_dtype = torch.promote_types(img.dtype, torch.float32)
+    x = img.to(compute_dtype)
     rgb = (x[..., 0], x[..., 1], x[..., 2])
     if spatial:
         xy = coords.coord_channels(
-            b, h, w, torch.float32, img.device,
+            b, h, w, compute_dtype, img.device,
             row_offset=row0,
             total_height=h if total_h is None else total_h,
             total_width=w if total_w is None else total_w,
@@ -116,7 +138,7 @@ def fused_trispace_residual_reference(
             planes = cp.hsv_from_rgb(*rgb)
         out = torch.sigmoid(
             poly.poly_apply(
-                torch.stack(planes + extra, dim=-1), cf.float(), degree=degree
+                torch.stack(planes + extra, dim=-1), cf.to(compute_dtype), degree=degree
             )
         )
         o = (out[..., 0], out[..., 1], out[..., 2])
@@ -157,6 +179,26 @@ def ptxas_report(degree: int = 4) -> str:
     return build.ptxas_report(_SOURCE, **_variant(degree))
 
 
+def _backward_variant(degree: int) -> dict:
+    """build.py's arguments for K1's backward at `degree`."""
+    return dict(tag=f"_d{degree}", headers={
+        poly_tables.HEADER: poly_tables.header(degree),
+        poly_tables.BACKWARD_HEADER: poly_tables.backward_header(degree),
+    })
+
+
+def build_backward_library(degree: int = 4):
+    """Build K1's backward library for `degree` unless it exists; returns its
+    path."""
+    return build.build(_BACKWARD_SOURCE, **_backward_variant(degree))
+
+
+def backward_ptxas_report(degree: int = 4) -> str:
+    """nvcc's `-Xptxas -v` report of `degree`'s backward library ("" before
+    its build)."""
+    return build.ptxas_report(_BACKWARD_SOURCE, **_backward_variant(degree))
+
+
 @functools.cache
 def _library(degree: int) -> ctypes.CDLL:
     """K1's library for `degree` with its C signatures declared; built on
@@ -177,6 +219,69 @@ def _library(degree: int) -> ctypes.CDLL:
         raise RuntimeError(f"K1's degree-{degree} library reports degree "
                            f"{lib.curl_trispace_degree()}")
     return lib
+
+
+def check_backward_supported(degree: int, dtype: torch.dtype) -> None:
+    """Raise ValueError unless K1's backward kernel takes `degree` and an
+    image of `dtype`."""
+    if degree not in BACKWARD_DEGREES or dtype not in _BACKWARD_DTYPES:
+        raise ValueError(f"K1's backward kernel takes degrees 1-9 and float32 or bfloat16 "
+                         f"images, not degree {degree} with {dtype}")
+
+
+@functools.cache
+def _backward_library(degree: int) -> ctypes.CDLL:
+    """K1's backward library for `degree` with its C signatures declared;
+    built on first call."""
+    lib = build.load(_BACKWARD_SOURCE, **_backward_variant(degree))
+    lib.curl_trispace_backward.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # img, grad, coef
+        ctypes.c_void_p, ctypes.c_void_p,  # row sums (scratch), out
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,  # batch, height, width
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # row0, total_h, total_w
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # spatial, composite, dtype
+        ctypes.c_void_p,  # stream
+    ]
+    lib.curl_trispace_backward.restype = ctypes.c_int
+    lib.curl_trispace_backward_row_floats.argtypes = [ctypes.c_int]
+    lib.curl_trispace_backward_row_floats.restype = ctypes.c_int
+    lib.curl_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.curl_cuda_error_string.restype = ctypes.c_char_p
+    lib.curl_trispace_backward_degree.restype = ctypes.c_int
+    if lib.curl_trispace_backward_degree() != degree:
+        raise RuntimeError(f"K1's degree-{degree} backward library reports degree "
+                           f"{lib.curl_trispace_backward_degree()}")
+    return lib
+
+
+def coefficient_grads(img: Tensor, grad: Tensor, packed: Tensor, degree: int, row0: int,
+                      spatial: bool, total_h: int, total_w: int, composite: bool) -> Tensor:
+    """The gradients of the three coefficient stacks at `grad` on the
+    output, by K1's backward kernel: (3, B, 3, N) float32, one (B, 3, N)
+    stack a space. `img` and `grad` are contiguous (B, H, W, 3) CUDA
+    tensors of one dtype, float32 or bfloat16; `packed` is
+    `pack_coefficients`' output. Counts in `BACKWARD_LAUNCHES`."""
+    global BACKWARD_LAUNCHES
+    b, h, w, _ = img.shape
+    out = torch.empty(3, b, 3, packed.shape[2], dtype=torch.float32, device=img.device)
+    if h * w == 0:
+        return out.zero_()
+    lib = _backward_library(degree)
+    sums = torch.empty(min(b, _MAX_GRID_Y) * h * lib.curl_trispace_backward_row_floats(
+        int(spatial)), dtype=torch.float32, device=img.device)
+    with torch.cuda.device(img.device):
+        stream = torch.cuda.current_stream(img.device).cuda_stream
+        rc = lib.curl_trispace_backward(
+            img.data_ptr(), grad.data_ptr(), packed.data_ptr(), sums.data_ptr(),
+            out.data_ptr(), b, h, w, row0, total_h, total_w, int(spatial), int(composite),
+            _DTYPES[img.dtype], stream,
+        )
+    if rc != 0:
+        msg = lib.curl_cuda_error_string(rc).decode()
+        raise RuntimeError(f"trispace backward kernel launch failed at degree {degree}: "
+                           f"{msg} ({rc})")
+    BACKWARD_LAUNCHES += 1
+    return out
 
 
 def _launch(
@@ -265,8 +370,10 @@ def _(img, coeff_rgb, coeff_lab, coeff_hsv, row0, total_h, total_w, spatial, com
 
 
 class _FusedTrispace(torch.autograd.Function):
-    """Kernel forward (the custom op); backward by autograd through the
-    plain version."""
+    """Kernel forward (the custom op). Backward on CUDA tensors: the
+    coefficients' gradients by K1's backward kernel, the image's (only when
+    asked for) by autograd through the plain version; on CPU tensors,
+    everything through the plain version."""
 
     @staticmethod
     def forward(ctx, img, coeff_rgb, coeff_lab, coeff_hsv, row0, spatial,
@@ -279,22 +386,45 @@ class _FusedTrispace(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        degree, row0, spatial, total_h, total_w, composite = ctx.cfg
+        global PLAIN_BACKWARDS
+        needs = ctx.needs_input_grad[:4]
         with span("curl_tpu_torch::k1.backward"):
-            inputs = [t.detach().requires_grad_(need)
-                      for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad[:4])]
-            wanted = [t for t in inputs if t.requires_grad]
-            grads = iter(())
-            if wanted:
-                # No local holds the recomputed graph, so its teardown falls
-                # inside the span too.
-                with torch.enable_grad():
-                    grads = iter(torch.autograd.grad(fused_trispace_residual_reference(
-                        *inputs, row0, degree=degree, spatial=spatial,
-                        total_h=total_h, total_w=total_w, composite=composite,
-                    ), wanted, grad))
-            return tuple(next(grads) if t.requires_grad else None
-                         for t in inputs) + (None,) * 5
+            img, *coeffs = ctx.saved_tensors
+            if img.device.type != "cuda":
+                return _plain_grads(ctx, grad, needs) + (None,) * 5
+            degree, row0, spatial, total_h, total_w, composite = ctx.cfg
+            if any(needs[1:]):
+                check_backward_supported(degree, img.dtype)
+            img_grad = None
+            if needs[0]:
+                img_grad = _plain_grads(ctx, grad, (True, False, False, False))[0]
+                PLAIN_BACKWARDS += 1
+            coeff_grads = [None] * 3
+            if any(needs[1:]):
+                stacks = coefficient_grads(
+                    img, grad.to(img.dtype).contiguous(), pack_coefficients(*coeffs), degree,
+                    row0, spatial, total_h, total_w, composite)
+                coeff_grads = [s.to(c.dtype) if need else None
+                               for s, c, need in zip(stacks, coeffs, needs[1:])]
+            return (img_grad, *coeff_grads) + (None,) * 5
+
+
+def _plain_grads(ctx, grad, needs) -> tuple:
+    """Autograd through the plain version: the gradients of (img, and the
+    three coefficient stacks) that `needs` asks for, None for the others."""
+    degree, row0, spatial, total_h, total_w, composite = ctx.cfg
+    inputs = [t.detach().requires_grad_(need) for t, need in zip(ctx.saved_tensors, needs)]
+    wanted = [t for t in inputs if t.requires_grad]
+    grads = iter(())
+    if wanted:
+        # No local holds the recomputed graph, so its teardown falls inside
+        # the caller's span too.
+        with torch.enable_grad():
+            grads = iter(torch.autograd.grad(fused_trispace_residual_reference(
+                *inputs, row0, degree=degree, spatial=spatial,
+                total_h=total_h, total_w=total_w, composite=composite,
+            ), wanted, grad))
+    return tuple(next(grads) if t.requires_grad else None for t in inputs)
 
 
 def fused_trispace_residual(

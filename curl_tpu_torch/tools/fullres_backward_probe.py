@@ -4,10 +4,11 @@
         [--iters 6] [--hw 1080x1920] [--predict 320]
         [--backbone efficientnetv2_rw_t] [--cpu]
 
-K1 (the fused tri-space residual) has no backward kernel: its
-autograd.Function differentiates its plain version, whose clips run K3.
-At 256^2 training crops the loss dominates; this bounds the cost where the
-backward could matter, a fine-tune at full resolution: coefficients
+K1 (the fused tri-space residual) has a forward kernel and a backward
+kernel to its coefficients (csrc/trispace_backward.cu); its plain version,
+which the "torch" path differentiates, runs K3 in its clips. At 256^2
+training crops the loss dominates; this measures the step where the
+residual's backward weighs most, a fine-tune at full resolution: coefficients
 predicted from a --predict^2 view, the residual applied and the CURL loss
 taken at --hw, the gradient over every parameter (backbone, head and the
 residual's apply). BN is frozen (eval mode): a full-resolution fine-tune
@@ -15,14 +16,13 @@ would not re-estimate batch statistics at serving resolution. The optimizer
 update is left out, the same for both paths.
 
 It times `residual_impl="torch"` (plain both ways) and then "cuda" (K1
-forward, its plain backward): --iters steps after a warm-up step, the
+forward and backward kernels): --iters steps after a warm-up step, the
 losses summed on the device and read once at the end. One line each with
 its ms a step and peak GiB, then one JSON line with both and
-`cuda_over_torch`: a ratio near 1 says the plain backward leaves little for
-a backward kernel to win. Weights come from a seeded torch.Generator, with
-BN statistics from one batch; inputs from numpy's default_rng(0). TF32 is
-off. It runs on `cuda` and raises when CUDA is absent, unless `--cpu` is
-given.
+`cuda_over_torch`: the share of the plain step that the kernels leave.
+Weights come from a seeded torch.Generator, with BN statistics from one
+batch; inputs from numpy's default_rng(0). TF32 is off. It runs on `cuda`
+and raises when CUDA is absent, unless `--cpu` is given.
 """
 
 from __future__ import annotations
@@ -129,9 +129,8 @@ def main(argv=None) -> dict:
         "torch_ms_per_step": torch_ms,
         "cuda_ms_per_step": cuda_ms,
         "cuda_over_torch": round(cuda_ms / torch_ms, 3) if torch_ms else None,
-        "note": "cuda = K1 forward + its plain backward (the autograd.Function); a ratio "
-        "near 1 means the plain backward is NOT worth a backward kernel even at full "
-        "resolution",
+        "note": "cuda = K1's forward and backward kernels (the autograd.Function); the "
+        "ratio is the share of the plain step they leave",
     }
     print(json.dumps(line), flush=True)
     return {**line, "runs": results}

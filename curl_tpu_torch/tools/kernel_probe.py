@@ -3,7 +3,7 @@ repeat on every run, on one NVIDIA GPU:
 
     python3 -m curl_tpu_torch.tools.kernel_probe [--sweep D [D ...]]
         [--other-order D [D ...]] [--k2-chunks C [C ...]] [--math-check]
-        [--k2-float64] [--parent DIR] [--no-sass] [--no-plain]
+        [--k2-float64] [--backward] [--parent DIR] [--no-sass] [--no-plain]
 
 1. K1's instance sweep, at each degree D of `--sweep` (default 4). K1's
    generated header (`ops/kernels/poly_tables.py`) fixes its pixels per
@@ -27,14 +27,15 @@ repeat on every run, on one NVIDIA GPU:
 0. With `--parent DIR`, a checkout of another version of the repository
    (`git archive`): its K1 at degrees 1-6 (each with the header its own
    `poly_tables.py` generates) and its K2 are built with the same flags.
-   K1 at BITWISE_DEGREES (1-3) and K2's runtime-count instance are held
+   K1 at BITWISE_DEGREES (1-6) and K2's runtime-count instance are held
    bitwise against this version's on the inputs of `chip_smoke.py` phases
    2 and 5 (fp32 residual and composite, a row band at row0 = 540, odd
    17x23, non-spatial, bf16, the u8 wire; K2 at (8, 12, 20), (2, 65, 5),
    (2, 96, 257), 96 and 257 knots, with and without a mask), K1 with the
-   same ptxas lines. K1 at the other degrees is held to the parent's
-   within K1's contract against its plain version (fp32 2e-4; bf16 99.9th
-   percentile 1e-2; u8 1 level, 99.9% equal), and 16-knot K2 within K2's
+   same ptxas lines. K1 at a degree left out of BITWISE_DEGREES (one whose
+   forward a version redesigns) is held to the parent's within K1's
+   contract against its plain version (fp32 2e-4; bf16 99.9th percentile
+   1e-2; u8 1 level, 99.9% equal), and 16-knot K2 within K2's
    (fp32 all but 1e-5 of the values within 2e-4 at knot std 0.05; u8 99.9%
    equal and all but 1e-5 within 1 level). A parent whose K2 takes prepared
    slopes and c0 (before the kernel formed them itself) gets them from
@@ -69,11 +70,22 @@ repeat on every run, on one NVIDIA GPU:
    percentile, share past 2e-4), and each variant's bare launch timed in
    turns with the built one's (built, variant, variant, built) at 1080p
    batch 8, at 16 knots a curve (logit std 0.05) and at 48 / 48 / 64.
-3. The cost of the plain versions, which are also the kernels' backward:
-   K1's and K2's plain forward at 1080p batch 8 (K2 at 16 knots with a
-   mask, as `chip_smoke.py` times it), and one training step through each
-   kernel's autograd.Function (kernel forward, backward by autograd through
-   the plain version, to the coefficients or the knots) at the reference
+6. With `--backward`, K1's backward to the coefficients at the training
+   recipe's batch 32 of 256x256 and at 1080p batch 2, fp32 composite: the
+   kernel bare (`coefficient_grads` on packed inputs), through the wrapper
+   (`autograd.grad` of the op's output, the graph kept: the
+   autograd.Function's backward alone) and the plain recompute it replaced
+   (autograd through the plain version), timed in turns (plain, kernel,
+   kernel, plain), beside the operation bound (BACKWARD_FLOP_PER_PIXEL at
+   67 TFLOP/s); the kernel's gradients against the plain ones (max relative
+   difference), bitwise equal over two calls; and ptxas's registers and
+   spills of each instance.
+3. The cost of the plain versions, which are also K2's backward: K1's and
+   K2's plain forward at 1080p batch 8 (K2 at 16 knots with a mask, as
+   `chip_smoke.py` times it), and one training step through each kernel's
+   autograd.Function (kernel forward; K1's backward kernel to the
+   coefficients, K2's backward by autograd through the plain version to the
+   knots) at the reference
    trainer's default batch of 32 crops of 256x256 (K2 at the curve model's
    48/48/64 knots). Each is timed in turns with three forms of the bounds
    wherever the plain versions call `clip` and `floor_at`: the port's (one
@@ -143,6 +155,14 @@ PROBE_DIR = build.BUILD_DIR / "probe"
 K1_MAIN = "trispace_residual_kernelIfLb1ELb1E"
 K2_MAIN = "curve_enhance_kernelIfLb0ELi16ELi16ELi16E"
 K2_RUNTIME = "curve_enhance_kernelIfLb0ELi0ELi0ELi0E"
+# K1's backward's operations a pixel at degree 4: the forward's count
+# (3 x ((F - 1) + 6F + 200), F = 70), one FMA a monomial of each of the nine
+# (space, channel) pairs (9 x 2F) and ~200 for the back-conversions'
+# vector-Jacobian products. The kernel issues more (it forms each space's
+# monomials once a channel); this is the work the gradient needs.
+BACKWARD_FLOP_PER_PIXEL = 3 * (69 + 6 * 70 + 200) + 9 * 2 * 70 + 200
+PEAK_FP32 = 67e12
+BACKWARD_SHAPES = ((TRAIN_BATCH, CROP, CROP), (2, HEIGHT, WIDTH))
 
 
 def log(msg: str) -> None:
@@ -290,7 +310,7 @@ def entries(report: str) -> dict[str, str]:
 # K2's runtime-count instance), within the contracts at the others (and
 # 16-knot K2).
 PARENT_DEGREES = (1, 2, 3, 4, 5, 6)
-BITWISE_DEGREES = (1, 2, 3)
+BITWISE_DEGREES = (1, 2, 3, 4, 5, 6)
 # K2's runtime-count instance against the parent's: three small cases and
 # two timed at 1080p batch 8.
 PARENT_COUNTS = ((8, 12, 20), (2, 65, 5), (2, 96, 257))
@@ -873,7 +893,7 @@ def plain_costs(card: str, rng) -> None:
         (ck.fused_curve_enhance(t_c_img, t_mask, *t_knots) * weight).sum().backward()
 
     steps = {
-        f"K1 step (kernel forward, plain backward to the coefficients), batch {TRAIN_BATCH} "
+        f"K1 step (kernel forward, backward kernel to the coefficients), batch {TRAIN_BATCH} "
         f"{CROP}x{CROP}": (k1_step, lambda: tk.fused_trispace_residual(t_img, *t_cs,
                                                                         composite=True)),
         f"K2 step (kernel forward, plain backward to the knots {CURVE_KNOTS}), batch "
@@ -892,6 +912,45 @@ def plain_costs(card: str, rng) -> None:
             f"{', '.join(peaks)}  [{card}]")
 
 
+def backward_costs(card: str, rng) -> None:
+    """Section 6: K1's backward kernel against the plain recompute."""
+    tk.build_backward_library(4)
+    for key, line in entries(tk.backward_ptxas_report(4)).items():
+        log(f"K1 backward degree 4 ptxas {key}: {line}")
+    for b, h, w in BACKWARD_SHAPES:
+        img = torch.from_numpy(rng.uniform(0, 1, (b, h, w, 3)).astype(np.float32)).cuda()
+        cs = [torch.from_numpy(rng.normal(scale=0.1, size=(b, 3, 126)).astype(np.float32))
+              .cuda().requires_grad_() for _ in range(3)]
+        grad = torch.from_numpy(rng.normal(size=img.shape).astype(np.float32)).cuda()
+        packed = tk.pack_coefficients(*[c.detach() for c in cs])
+        out = tk.fused_trispace_residual(img, *cs, composite=True)
+
+        def bare():
+            return tk.coefficient_grads(img, grad, packed, 4, 0, True, h, w, True)
+
+        def wrapper():
+            return torch.autograd.grad(out, cs, grad, retain_graph=True)
+
+        def plain():
+            return torch.autograd.grad(
+                tk.fused_trispace_residual_reference(img, *cs, composite=True), cs, grad)
+
+        ours, theirs = wrapper(), plain()
+        rel = max(float((a - e).abs().max() / e.abs().max()) for a, e in zip(ours, theirs))
+        same = all(torch.equal(x, y) for x, y in zip(bare(), bare()))
+        bound = BACKWARD_FLOP_PER_PIXEL * b * h * w / PEAK_FP32 * 1e3
+        p_ms, k_ms = in_turns(plain, bare, 3, 1)
+        _, w_ms = in_turns(plain, wrapper, 3, 1)
+        log(f"K1 backward {b}x{h}x{w} fp32 composite: bare {k_ms[0]:.4f} / {k_ms[1]:.4f} ms, "
+            f"wrapper {w_ms[0]:.4f} / {w_ms[1]:.4f} ms, plain recompute {p_ms[0]:.3f} / "
+            f"{p_ms[1]:.3f} ms; bound {bound:.4f} ms (operations), {bound / k_ms[0]:.1%} of it "
+            f"bare; max relative difference from the plain gradients {rel:.3e}; two calls "
+            f"{'bitwise equal' if same else 'DIFFER'}  [{card}]")
+        if not same:
+            raise AssertionError("K1's backward kernel gave other bits on a second call")
+        del img, cs, grad, packed, out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--sweep", type=int, nargs="*", default=[4],
@@ -904,6 +963,8 @@ def main(argv=None) -> int:
                         help="check each color math primitive over its float32 domain")
     parser.add_argument("--k2-float64", action="store_true",
                         help="K2 and more exact variants against float64 at steep curves")
+    parser.add_argument("--backward", action="store_true",
+                        help="time K1's backward kernel against the plain recompute")
     parser.add_argument("--parent", type=Path, help="checkout to hold K1 and K2 against")
     parser.add_argument("--no-sass", action="store_true", help="skip the SASS opcode counts")
     parser.add_argument("--no-plain", action="store_true", help="skip the plain versions' costs")
@@ -914,7 +975,7 @@ def main(argv=None) -> int:
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     rng = np.random.default_rng(0)
-    saved = tk.LAUNCHES, ck.LAUNCHES
+    saved = tk.LAUNCHES, ck.LAUNCHES, tk.BACKWARD_LAUNCHES
     if args.parent:
         compare_parent(card, rng, args.parent)
     if args.sweep or args.other_order:
@@ -929,7 +990,9 @@ def main(argv=None) -> int:
         math_check(card)
     if args.k2_float64:
         k2_float64(card, rng)
-    tk.LAUNCHES, ck.LAUNCHES = saved
+    if args.backward:
+        backward_costs(card, rng)
+    tk.LAUNCHES, ck.LAUNCHES, tk.BACKWARD_LAUNCHES = saved
     return 0
 
 

@@ -25,9 +25,9 @@ counterpart of the JAX case:
                     update, no augmentation) on a private copy of the state.
 
 The residual runs the port step's own path, named `impl` in each line: on
-the card "cuda" (K1's forward; its backward differentiates the plain
-version, whose clips run K3), on the CPU "torch". Inputs are drawn as the
-JAX tool draws them, from numpy's default_rng(0): the input and target
+the card "cuda" (K1's forward and its backward kernel to the
+coefficients), on the CPU "torch". Inputs are drawn as the JAX tool draws
+them, from numpy's default_rng(0): the input and target
 images, an all-ones mask, three coefficient stacks of std 0.1. The
 weights come from a seeded torch.Generator, with BN statistics from one
 batch; the optimizer is Adam under `onecycle_schedule(100, 10)`.

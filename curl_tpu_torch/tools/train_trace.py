@@ -25,7 +25,7 @@
 3. The full-resolution fine-tune step of `fullres_backward_probe` (rw_t, BN
    frozen, 320^2 predict, the residual and the CURL loss at 1080p, batch
    2, the gradient over every parameter), traced for each residual impl:
-   "torch" (plain both ways) and "cuda" (K1 forward, its plain backward).
+   "torch" (plain both ways) and "cuda" (K1's forward and backward kernels).
 
 Launches made here are not main-path launches; the kernels' counters are
 left as they were. Without CUDA it exits non-zero.

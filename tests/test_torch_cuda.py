@@ -216,7 +216,7 @@ def test_color_math_primitive_within_its_record(cuda, name):
 
 @pytest.mark.parametrize("degree", [3, 5])
 def test_gradients_at_other_degrees(cuda, degree):
-    """The autograd.Function's backward runs the plain version at the
+    """The autograd.Function's backward runs the backward kernel at the
     call's degree."""
     img, cs = _inputs(40 + degree, 1, 32, 32, poly.num_monomials(degree, 5))
     img = img.clamp(0.2, 0.8)
@@ -228,6 +228,174 @@ def test_gradients_at_other_degrees(cuda, degree):
     for x, y in zip(a, b):
         assert float(x.grad.abs().max()) > 0
         torch.testing.assert_close(x.grad, y.grad, rtol=1e-4, atol=1e-4)
+
+
+def _coeff_grads(fn, img, cs, weight):
+    """The three coefficient stacks' gradients of sum(fn(img, cs) * weight)."""
+    leaves = [c.clone().requires_grad_() for c in cs]
+    return torch.autograd.grad((fn(img, leaves).float() * weight).sum(), leaves)
+
+
+def _exact_grads(img, cs, weight, **kw):
+    """The plain version's coefficient gradients in float64, at the
+    upstream gradient a float32 path of img's dtype sees (bf16-rounded for
+    a bf16 image)."""
+    leaves = [c.double().requires_grad_() for c in cs]
+    out = _plain(img.double(), leaves, **kw)
+    return torch.autograd.grad((out * weight.to(img.dtype).double()).sum(), leaves)
+
+
+def _no_further_from_float64(got, plain, exact):
+    """Each stack within rtol/atol 1e-4 of the float64 gradient; where not,
+    its distance from it, in units of that tolerance, no larger in L2 than
+    1.5 times the plain float32 version's. L2, as for the chain orders in
+    tests/test_torch_kernel_redesign.py: the largest single distance is a
+    few pixels' rounding and swings between two float32 paths from case to
+    case."""
+    for g, p, e in zip(got, plain, exact):
+        tol = 1e-4 + 1e-4 * e.abs()
+        g_err = (g.double() - e) / tol
+        p_err = (p.double() - e) / tol
+        if float(g_err.abs().max()) > 1.0:
+            assert float(g_err.norm()) <= 1.5 * float(p_err.norm()), (
+                float(g_err.abs().max()), float(g_err.norm()), float(p_err.norm()))
+
+
+@pytest.mark.parametrize("spatial", [True, False], ids=["spatial", "non_spatial"])
+@pytest.mark.parametrize("degree", [1, 2, 3, 4, 5, 6, 7])
+def test_backward_kernel_matches_plain_autograd(cuda, degree, spatial):
+    """The backward kernel's coefficient gradients at each degree against
+    autograd through the plain version: residual and composite, fp32 and
+    bf16 images, the whole of a ragged 17x23 image and a band of a taller
+    one (row0 = 40 of 100 rows). Up to degree 4 (the main path's) within
+    test_gradients_match_plain_autograd's 1e-4 of the plain float32
+    gradients. At every degree within 1e-4 of the float64 ones, or, where
+    not, no further from them than the plain float32 version
+    (`_no_further_from_float64`): from degree 5 on, the Lab stack's sums
+    cancel to a few hundredths of their terms, and both float32 paths land
+    up to ~3e-4 from float64.
+    Each backward is one kernel call and no plain recompute."""
+    n = poly.num_monomials(degree, 3 + 2 * int(spatial))
+    img, cs = _inputs(80 + degree, 2, 17, 23, n)
+    img = img.clamp(0.2, 0.8)
+    weight = torch.randn(img.shape, generator=torch.Generator().manual_seed(degree)).to(cuda)
+    for dtype in (torch.float32, torch.bfloat16):
+        for kw in (dict(), dict(composite=True), dict(composite=True, tile=(40, 0, 100, 23))):
+            kw = dict(degree=degree, spatial=spatial, **kw)
+            x = img.to(dtype)
+            before = tk.BACKWARD_LAUNCHES, tk.PLAIN_BACKWARDS
+            got = _coeff_grads(lambda i, c: tk.fused_trispace_residual(i, *c, **kw), x, cs,
+                               weight)
+            assert (tk.BACKWARD_LAUNCHES, tk.PLAIN_BACKWARDS) == (before[0] + 1, before[1])
+            plain = _coeff_grads(lambda i, c: _plain(i, c, **kw), x, cs, weight)
+            for a, b in zip(got, plain):
+                assert float(b.abs().max()) > 0
+                if degree <= 4:
+                    torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4, msg=str((dtype, kw)))
+            _no_further_from_float64(got, plain, _exact_grads(x, cs, weight, **kw))
+
+
+def test_backward_kernel_at_ties_and_saturation(cuda):
+    """Image values exactly 0 and 1 and coefficients whose constant terms
+    push the sigmoids to saturation, so that the composite's clip, the
+    HSV ramps' and outputs' clips and the Lab branches are engaged: the
+    kernel's coefficient gradients still hold to the plain autograd's."""
+    img, cs = _inputs(90, 2, 32, 48)
+    img[:, ::4] = 0.0
+    img[:, 1::4] = 1.0
+    img[:, 2::8, :, 1] = 1.0
+    rng = np.random.default_rng(91)
+    for c in cs:
+        c[:, :, 0] += torch.from_numpy(rng.choice([-6.0, 0.0, 6.0], size=(2, 3))).float().to(cuda)
+    weight = torch.randn(img.shape, generator=torch.Generator().manual_seed(9)).to(cuda)
+    for composite in (False, True):
+        got = _coeff_grads(lambda i, c: tk.fused_trispace_residual(i, *c, composite=composite),
+                           img, cs, weight)
+        expect = _coeff_grads(lambda i, c: _plain(i, c, composite=composite), img, cs, weight)
+        for a, b in zip(got, expect):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+def test_backward_kernel_past_the_grid_limits(cuda):
+    """70,000 rows of one pixel (17,500 tiles of 4 rows), held to the
+    float64 gradients as at the other degrees; and 70,000 images (past
+    grid.y's 65,535: two launches of one call), bitwise the two halves'
+    calls, each within one launch. One pixel a row keeps the pixels few:
+    over a million of them, a clip that one float32 path meets and the other
+    misses by an ulp (the composite's, of img + residual) is all but
+    certain somewhere, and moves the sums by a whole pixel's term."""
+    img, cs = _inputs(92, 1, 70_000, 1)
+    img = img.clamp(0.2, 0.8)
+    weight = torch.randn(img.shape, generator=torch.Generator().manual_seed(2)).to(cuda)
+    kw = dict(composite=True)
+    got = _coeff_grads(lambda i, c: tk.fused_trispace_residual(i, *c, **kw), img, cs, weight)
+    plain = _coeff_grads(lambda i, c: _plain(i, c, **kw), img, cs, weight)
+    _no_further_from_float64(got, plain, _exact_grads(img, cs, weight, **kw))
+    many, cs = _inputs(93, 70_000, 2, 3, 35)
+    weight = torch.randn(many.shape, generator=torch.Generator().manual_seed(3)).to(cuda)
+    kw = dict(spatial=False, composite=True)
+    before = tk.BACKWARD_LAUNCHES
+    got = _coeff_grads(lambda i, c: tk.fused_trispace_residual(i, *c, **kw), many, cs, weight)
+    assert tk.BACKWARD_LAUNCHES == before + 1
+    halves = [_coeff_grads(lambda i, c: tk.fused_trispace_residual(i, *c, **kw), many[part],
+                           [c[part] for c in cs], weight[part])
+              for part in (slice(0, 35_000), slice(35_000, None))]
+    for a, first, second in zip(got, *halves):
+        assert torch.equal(a, torch.cat([first, second]))
+
+
+def test_backward_kernel_is_deterministic(cuda):
+    """No float atomics: two backward passes on the same inputs give the
+    same bits, at the training recipe's batch and crop."""
+    img, cs = _inputs(94, 32, 256, 256)
+    weight = torch.randn(img.shape, generator=torch.Generator().manual_seed(4)).to(cuda)
+    runs = [_coeff_grads(lambda i, c: tk.fused_trispace_residual(i, *c, composite=True), img,
+                         cs, weight) for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_image_gradient_takes_the_plain_backward(cuda):
+    """With an image that requires grad, its gradient comes from one plain
+    recompute and the coefficients' still from the kernel: one of each,
+    both against the plain autograd."""
+    img, cs = _inputs(95, 2, 24, 40)
+    weight = torch.randn(img.shape, generator=torch.Generator().manual_seed(5)).to(cuda)
+    a = [t.clone().requires_grad_() for t in (img, *cs)]
+    b = [t.clone().requires_grad_() for t in (img, *cs)]
+    before = tk.BACKWARD_LAUNCHES, tk.PLAIN_BACKWARDS
+    (tk.fused_trispace_residual(*a, composite=True) * weight).sum().backward()
+    assert (tk.BACKWARD_LAUNCHES, tk.PLAIN_BACKWARDS) == (before[0] + 1, before[1] + 1)
+    (_plain(b[0], b[1:], composite=True) * weight).sum().backward()
+    for x, y in zip(a, b):
+        assert float(y.grad.abs().max()) > 0
+        torch.testing.assert_close(x.grad, y.grad, rtol=1e-4, atol=1e-4)
+
+
+class _BackwardCtx:
+    """What `_FusedTrispace.backward` reads of its context: the saved
+    tensors, the forward's settings and which inputs want a gradient (the
+    coefficients, not the image)."""
+
+    needs_input_grad = (False, True, True, True) + (False,) * 5
+
+    def __init__(self, img, cs, degree):
+        self.saved_tensors = (img, *cs)
+        self.cfg = (degree, 0, True, img.shape[1], img.shape[2], True)
+
+
+@pytest.mark.parametrize("degree,dtype", [(10, torch.float32), (4, torch.uint8)],
+                         ids=["degree_10", "uint8"])
+def test_backward_kernel_refuses_by_name(cuda, degree, dtype):
+    """On CUDA tensors the backward names what its kernel does not take (a
+    degree past 9, a uint8 image) and raises before it packs, builds or
+    launches anything; it does not fall back to the plain recompute."""
+    img, cs = _inputs(96, 1, 8, 8, poly.num_monomials(degree, 5))
+    img = (img * 255).to(dtype) if dtype == torch.uint8 else img
+    before = tk.BACKWARD_LAUNCHES, tk.PLAIN_BACKWARDS
+    with pytest.raises(ValueError, match="degrees 1-9 and float32 or bfloat16"):
+        tk._FusedTrispace.backward(_BackwardCtx(img, cs, degree), torch.ones_like(img).float())
+    assert (tk.BACKWARD_LAUNCHES, tk.PLAIN_BACKWARDS) == before
 
 
 def _spills(report: str) -> dict:
@@ -606,6 +774,18 @@ def test_training_step_kernel_matches_plain(cuda, kind):
     assert rel <= 1e-3, rel
     for k in kb:
         assert torch.equal(kb[k], pb[k]), k
+
+
+def test_training_step_takes_the_backward_kernel(cuda):
+    """A K1 training step (coefficients that require grad, an image that
+    does not) takes one backward kernel call and no plain recompute; the
+    plain model's step takes neither."""
+    from curl_tpu_torch.models import TriSpacePolyNet
+
+    before = tk.BACKWARD_LAUNCHES, tk.PLAIN_BACKWARDS
+    (_, _, _, kn), (_, _, _, pn) = _train_step_pair(TriSpacePolyNet, "residual_impl")
+    assert kn == (1, 0) and pn == (0, 0)
+    assert (tk.BACKWARD_LAUNCHES, tk.PLAIN_BACKWARDS) == (before[0] + 1, before[1])
 
 
 @pytest.mark.parametrize("kind", ["trispace", "curve"])

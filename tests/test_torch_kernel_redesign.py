@@ -145,6 +145,106 @@ def test_y_fold_equals_five_variable_polynomial(row0, total_h, degree):
     assert err_fold <= 1.5 * err_full
 
 
+@pytest.mark.parametrize("degree", range(1, 7))
+def test_unfold_table_is_the_fold_transposed(degree):
+    """kUnfoldY of each degree's backward header: for every monomial j of
+    (c1, c2, c3, x, y) the (q, e) that kFoldY of the forward's header maps
+    to j, and nothing else; the forward's header does not carry it."""
+    text = poly_tables.backward_header(degree)
+    unfold = _table(text, "kUnfoldY")
+    fold = _table(poly_tables.header(degree), "kFoldY")
+    assert unfold == poly_tables.unfold_map(degree)
+    assert len(unfold) == poly.num_monomials(degree, 5)
+    assert [fold[q][e] for q, e in unfold] == list(range(len(unfold)))
+    assert "const int16_t kUnfoldY" in text
+    assert "kUnfoldY" not in poly_tables.header(degree)
+
+
+@pytest.mark.parametrize("spatial", [True, False], ids=["spatial", "non_spatial"])
+@pytest.mark.parametrize("degree", range(1, 7))
+def test_row_sums_expanded_by_y_equal_the_coefficient_gradient(degree, spatial):
+    """The backward kernel's algebra in float64: per row, the sums over
+    pixels of g * m_q over the C(D+4, 4) monomials of (c1, c2, c3, x)
+    (C(D+3, 3) of (c1, c2, c3) when not spatial), expanded by powers of the
+    row's y through kUnfoldY of the backward header (the identity when not
+    spatial), equal autograd's gradient of `poly.poly_apply` over the
+    coefficients to 1e-12, on a band of a taller image."""
+    rng = np.random.default_rng(degree + 10 * spatial)
+    b, h, w, row0, total_h = 2, 7, 33, 5, 40
+    nv = 4 if spatial else 3
+    planes = torch.from_numpy(rng.uniform(0, 1, (b, h, w, 3)))
+    cf = torch.from_numpy(rng.normal(scale=0.3, size=(b, 3, poly.num_monomials(
+        degree, nv + int(spatial))))).requires_grad_()
+    g = torch.from_numpy(rng.normal(size=(b, h, w, 3)))
+    xy = coords.coord_channels(b, h, w, torch.float64, row_offset=row0, total_height=total_h,
+                               total_width=w)
+    variables = torch.cat([planes, xy if spatial else xy[..., :0]], dim=-1)
+    (truth,) = torch.autograd.grad((poly.poly_apply(variables, cf, degree=degree) * g).sum(),
+                                   cf)
+
+    chain = [planes[..., i] for i in range(3)] + ([xy[..., 0]] if spatial else [])
+    m = poly.monomial_basis(chain, degree)  # (B, H, W, C(D+nv, nv))
+    row_sums = torch.einsum("bhwc,bhwq->bhcq", g, m)
+    if spatial:
+        unfold = _table(poly_tables.backward_header(degree), "kUnfoldY")
+        y = xy[0, :, 0, 1]
+        got = torch.stack([(y[:, None] ** e * row_sums[..., q]).sum(dim=1)
+                           for q, e in unfold], dim=-1)
+    else:
+        got = row_sums.sum(dim=1)
+    torch.testing.assert_close(got, truth, atol=1e-12, rtol=0)
+
+
+def test_cpu_backward_is_the_plain_one_and_counts_nothing(monkeypatch):
+    """On CPU tensors `_FusedTrispace`'s backward is autograd through the
+    plain version, image and coefficients alike, bitwise, and neither the
+    backward kernel's counter nor the plain recomputes' moves. The forward
+    launch is stood in for by the plain version."""
+    monkeypatch.setattr(
+        tk, "_launch",
+        lambda img, a, b, c, row0, spatial, th, tw, composite:
+        tk.fused_trispace_residual_reference(
+            img, a, b, c, row0, spatial=spatial, total_h=th, total_w=tw, composite=composite),
+    )
+    rng = np.random.default_rng(3)
+    img = torch.from_numpy(rng.uniform(0, 1, (2, 9, 13, 3)).astype(np.float32))
+    cs = [torch.from_numpy(rng.normal(scale=0.2, size=(2, 3, 126)).astype(np.float32))
+          for _ in range(3)]
+    weight = torch.from_numpy(rng.normal(size=img.shape).astype(np.float32))
+    before = tk.BACKWARD_LAUNCHES, tk.PLAIN_BACKWARDS
+    for image_grad in (False, True):
+        a = [t.clone().requires_grad_(image_grad or i > 0) for i, t in enumerate([img, *cs])]
+        p = [t.clone().requires_grad_(image_grad or i > 0) for i, t in enumerate([img, *cs])]
+        (tk._FusedTrispace.apply(*a, 3, True, 20, 13, True) * weight).sum().backward()
+        (tk.fused_trispace_residual_reference(*p, 3, total_h=20, total_w=13, composite=True)
+         * weight).sum().backward()
+        for x, y in zip(a, p):
+            assert (x.grad is None) == (y.grad is None)
+            if x.grad is not None:
+                assert float(x.grad.abs().max()) > 0
+                assert torch.equal(x.grad, y.grad)
+    assert (tk.BACKWARD_LAUNCHES, tk.PLAIN_BACKWARDS) == before
+
+
+@pytest.mark.parametrize("degree,dtype,takes", [
+    (1, torch.float32, True), (4, torch.bfloat16, True), (9, torch.float32, True),
+    (0, torch.float32, False), (10, torch.float32, False), (10, torch.bfloat16, False),
+    (4, torch.uint8, False), (4, torch.float16, False), (4, torch.float64, False),
+])
+def test_backward_kernel_names_what_it_does_not_take(degree, dtype, takes):
+    """K1's backward kernel takes degrees 1-9 (its shared memory, 192 x
+    C(D+4, 4) + 77,056 bytes, fits the 227 KB a block may have only up to
+    degree 9) and float32 or bfloat16 images; anything else raises the
+    named error before a tensor is packed or a library built."""
+    fits = 192 * poly.num_monomials(degree, 4) + 77_056 <= 227 * 1024
+    assert (degree in tk.BACKWARD_DEGREES) == (1 <= degree and fits)
+    if takes:
+        tk.check_backward_supported(degree, dtype)
+    else:
+        with pytest.raises(ValueError, match="degrees 1-9 and float32 or bfloat16"):
+            tk.check_backward_supported(degree, dtype)
+
+
 def _steps(text: str, num_vars: int) -> tuple:
     """(parent, var, formed) steps of a header's chain over `num_vars`
     variables, in the header's order."""
