@@ -13,9 +13,13 @@ bytes each way than fp32. A uint8 target with `out_u8` goes to the fused
 kernels as it is: they read u8 and write u8 (`ops.wire`), with no torch
 normalize or quantize pass around them.
 
-`enhance_chained` serves K batches per host call: on `cuda` their K `_full`
-calls are one CUDA graph, so the host's per-batch enqueue of the backbone's
-kernels is paid once at capture, and each call after it is one graph launch.
+On `cuda` the prediction (view and mask to coefficients or knots) is a
+CUDA graph, captured once for each input signature (`_PredictGraph`) and
+replayed by every later call: the host enqueues one graph launch instead of
+the backbone's and head's ~700 kernels. The apply (K1 or K2) stays outside
+it, one eager launch a batch. `enhance_chained` serves K batches per host
+call: on `cuda` their K `_full` calls, prediction and apply, are one CUDA
+graph, inside whose capture the prediction runs eagerly.
 """
 
 from __future__ import annotations
@@ -52,6 +56,12 @@ from curl_tpu_torch.utils.profiling import span
 BYTES_PER_PIXEL = {"cuda_u8": 6, "cuda": 48, "torch": 256}
 _MEMORY_SHARE = 8
 
+# Predictions on the serving paths: `_PredictGraph` captures and replays, and
+# predictions run eagerly (on the CPU, and inside a stream capture).
+PREDICT_CAPTURES = 0
+PREDICT_REPLAYS = 0
+PREDICT_EAGER = 0
+
 
 def default_tile_pixels(device: torch.device, impl: str, u8_wire: bool = False) -> int:
     """Per-image pixel bound above which `enhance_image` bands the apply:
@@ -79,31 +89,42 @@ def auto_tile_rows(height: int, width: int, budget_px: int) -> Optional[int]:
     return min(rows, height)
 
 
+def _capture(device: torch.device, inputs: list[Tensor], warm_up, body):
+    """Static copies of `inputs` on `device`, and `body(*statics)` captured
+    as a CUDA graph after `warm_up(*statics)` ran once eagerly on a side
+    stream: the first launch of K1 or K2 builds it with nvcc and cuDNN picks
+    its algorithms, and neither may happen inside a capture. Returns
+    (statics, graph, what `body` returned)."""
+    statics = [torch.empty(x.shape, dtype=x.dtype, device=device) for x in inputs]
+    for static, x in zip(statics, inputs):
+        static.copy_(x)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        warm_up(*statics)
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outputs = body(*statics)
+    return statics, graph, outputs
+
+
 class _ChainedGraph:
     """K consecutive `Enhancer._full` calls captured as one CUDA graph, with
     static input buffers (K, B, ...) and the stacked output (K, B, H, W, C).
 
-    Capture follows a warm-up on a side stream: the first launch of K1 or K2
-    builds it with nvcc and cuDNN picks its algorithms, and neither may
-    happen inside a capture. Host-to-device copies stay out of the graph:
-    `run` copies each call's inputs into the static buffers, then replays."""
+    The warm-up runs the first batch's `_full` with its prediction eager,
+    the path the capture records. Host-to-device copies stay out of the
+    graph: `run` copies each call's inputs into the static buffers, then
+    replays."""
 
     def __init__(self, enhancer: "Enhancer", inputs: list[Tensor]):
-        device = enhancer.device
-        self.inputs = [torch.empty(x.shape, dtype=x.dtype, device=device) for x in inputs]
-        for static, x in zip(self.inputs, inputs):
-            static.copy_(x)
-        chain = len(inputs[0])
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):
-            enhancer._full(*(x[0] for x in self.inputs))
-        torch.cuda.current_stream(device).wait_stream(side)
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            self.output = torch.stack(
-                [enhancer._full(*(x[k] for x in self.inputs)) for k in range(chain)]
-            )
+        chain = range(len(inputs[0]))
+        self.inputs, self.graph, self.output = _capture(
+            enhancer.device, inputs,
+            lambda *xs: enhancer._full(*(x[0] for x in xs), graphed=False),
+            lambda *xs: torch.stack([enhancer._full(*(x[k] for x in xs)) for k in chain]),
+        )
 
     def run(self, inputs: list[Tensor]) -> Tensor:
         for static, x in zip(self.inputs, inputs):
@@ -111,6 +132,38 @@ class _ChainedGraph:
         self.graph.replay()
         # The next replay overwrites the static output.
         return self.output.clone()
+
+
+class _PredictGraph:
+    """One prediction, `Enhancer._predict_on_device` from a view and mask of
+    one shape and dtype each, captured as a CUDA graph between static input
+    buffers and static outputs: (R, L, H) coefficients or (knots,).
+
+    `run` copies a request's view and mask into the static buffers (a host
+    array straight from its memory), replays, and clones the outputs, which
+    the next replay overwrites.
+
+    The graph reads the model's parameters and buffers where they were at
+    capture: `load_state_dict` into the served model copies in place and
+    keeps it valid; replacing a module, a parameter or a buffer does not.
+    It holds the eval-mode forward that `Enhancer` serves."""
+
+    def __init__(self, enhancer: "Enhancer", inputs: list[Tensor]):
+        global PREDICT_CAPTURES
+        predict = enhancer._predict_on_device
+        self.inputs, self.graph, self.outputs = _capture(enhancer.device, inputs, predict, predict)
+        PREDICT_CAPTURES += 1
+
+    def run(self, inputs: list[Tensor]) -> tuple[Tensor, ...]:
+        global PREDICT_REPLAYS
+        with span("curl_tpu_torch::model.predict"):
+            for static, x in zip(self.inputs, inputs):
+                with span("curl_tpu_torch::engine.upload"):
+                    static.copy_(x, non_blocking=True)
+            with span("curl_tpu_torch::model.replay"):
+                self.graph.replay()
+            PREDICT_REPLAYS += 1
+            return tuple(t.clone() for t in self.outputs)
 
 
 class Enhancer:
@@ -127,6 +180,11 @@ class Enhancer:
     `auto_tile_pixels` for a float target or output, and `u8_tile_pixels`
     for a uint8 target with `out_u8`, which the fused kernel takes whole.
     A given value sets both.
+
+    On `cuda` every prediction outside a stream capture replays the CUDA
+    graph captured at the first call for its inputs' signature
+    (`_PredictGraph`). Its static buffers, like `enhance_chained`'s, make
+    an Enhancer serve one thread at a time.
     """
 
     def __init__(
@@ -157,6 +215,9 @@ class Enhancer:
             self.auto_tile_pixels = self.u8_tile_pixels = auto_tile_pixels
         # One captured graph per (out_u8, K and the inputs' shapes and dtypes).
         self._chained: dict[tuple, _ChainedGraph] = {}
+        # One captured prediction per (model kind and compute dtype, the view's
+        # and the mask's shapes and dtypes).
+        self._predict_graphs: dict[tuple, _PredictGraph] = {}
 
     def _to_device(self, x) -> Tensor:
         with span("curl_tpu_torch::engine.upload"):
@@ -169,14 +230,39 @@ class Enhancer:
                 "the curve model applies in one fused pass"
             )
 
+    def _predict_on_device(self, img_small: Tensor, mask_small: Tensor) -> tuple[Tensor, ...]:
+        """The model's prediction from a view and mask on the device: (R, L,
+        H) coefficients, or (knots,) for a CurlCurveNet, which looks at the
+        view alone."""
+        img_small = wire.norm_u8(img_small)
+        if self.is_curve:
+            return (self.model.predict_knots(img_small),)
+        return self.model.generate_coefficients(img_small, wire.norm_u8(mask_small, scale=False))
+
     @torch.inference_mode()
+    def _predict(self, img_small, mask_small, graphed: bool = True) -> tuple[Tensor, ...]:
+        """The serving paths' prediction. On `cuda`, outside a stream
+        capture, it is a replay of the `_PredictGraph` of the inputs'
+        signature, captured at its first call; elsewhere, and with
+        `graphed=False` (the warm-up of `_ChainedGraph`, which must run the
+        eager path it captures), it runs eagerly."""
+        global PREDICT_EAGER
+        if graphed and self.device.type == "cuda" and not torch.cuda.is_current_stream_capturing():
+            inputs = [torch.as_tensor(x) for x in (img_small, mask_small)]
+            key = (self.is_curve, getattr(self.model, "compute_dtype", None)) + tuple(
+                (tuple(x.shape), x.dtype) for x in inputs)
+            graph = self._predict_graphs.get(key)
+            if graph is None:
+                graph = self._predict_graphs[key] = _PredictGraph(self, inputs)
+            return graph.run(inputs)
+        PREDICT_EAGER += 1
+        return self._predict_on_device(self._to_device(img_small), self._to_device(mask_small))
+
     def coefficients(self, img_small, mask_small):
         """(B, s, s, 3), (B, s, s, 1) -> (R, L, H) each (B, 3, N).
         Polynomial models only."""
         self._polynomial_only()
-        img_small = wire.norm_u8(self._to_device(img_small))
-        mask_small = wire.norm_u8(self._to_device(mask_small), scale=False)
-        return self.model.generate_coefficients(img_small, mask_small)
+        return self._predict(img_small, mask_small)
 
     @torch.inference_mode()
     def residual(self, target, coeffs, tile_rows: Optional[int] = None) -> Tensor:
@@ -198,26 +284,25 @@ class Enhancer:
             ))
         return torch.cat(bands, dim=1)
 
-    def _full(self, img_small, mask_small, target) -> Tensor:
+    def _full(self, img_small, mask_small, target, graphed: bool = True) -> Tensor:
         """The whole deployment path for one batch: coefficients (or knots),
         the fused apply with composite, and the u8 quantization, all on the
         device. A uint8 target with `out_u8` stays uint8 end to end: one
-        kernel launch reads it and writes the u8 result."""
+        kernel launch reads it and writes the u8 result. `graphed`: as
+        `_predict`."""
         with span("curl_tpu_torch::engine.batch"):
             target = self._to_device(target)
             u8_wire = self.out_u8 and target.dtype == torch.uint8
             if not u8_wire:
                 target = wire.norm_u8(target)
-            if self.is_curve:
-                img_small = wire.norm_u8(self._to_device(img_small))
-                mask_small = wire.norm_u8(self._to_device(mask_small), scale=False)
-                with torch.inference_mode():
-                    out, _ = self.model(img_small, mask_small, target)
-            else:
-                r, l, h = self.coefficients(img_small, mask_small)
-                with torch.inference_mode():
+            prediction = self._predict(img_small, mask_small, graphed)
+            with torch.inference_mode():
+                if self.is_curve:
+                    (knots,) = prediction
+                    out, _ = self.model.apply_knots(knots, target, None)
+                else:
                     out = enhance.trispace_enhance(
-                        target, r, l, h,
+                        target, *prediction,
                         degree=self.model.polynomial_order,
                         spatial=self.model.spatial,
                         impl=self.impl,

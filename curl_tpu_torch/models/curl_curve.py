@@ -146,13 +146,20 @@ class CurlCurveNet(nn.Module):
         is the u8 wire and gives a uint8 result. Returns (enhanced,
         regularizer)."""
         knots = self.predict_knots(img)
+        if target_img is None:
+            return self.apply_knots(knots, img, mask)
+        return self.apply_knots(knots, target_img, target_mask)
+
+    def apply_knots(
+        self, knots: Tensor, img: Tensor, mask: Optional[Tensor]
+    ) -> tuple[Tensor, Tensor]:
+        """The curves of (B, total) `knots`, split into their Lab, RGB and
+        HSV parts, over (B,H,W,3) `img` under `mask` (None: all ones, never
+        materialized). A uint8 `img` is the u8 wire and gives a uint8
+        result. Returns (enhanced, regularizer)."""
         b1 = self.num_lab_points
         b2 = b1 + self.num_rgb_points
-        if target_img is None:
-            apply_img, apply_mask = img, mask
-        else:
-            apply_img, apply_mask = target_img, target_mask
         return curl_curve_layer(
-            apply_img, apply_mask, knots[:, :b1], knots[:, b1:b2], knots[:, b2:],
+            img, mask, knots[:, :b1], knots[:, b1:b2], knots[:, b2:],
             mode=self.curve_mode, impl=self.curve_impl,
         )

@@ -929,6 +929,134 @@ def test_enhance_chained_graph_matches_per_batch(cuda, u8):
         assert len(enh._chained) == 1
 
 
+def _serving_batch(seed, b, side, h, w):
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, 256, (b, side, side, 3)).astype(np.uint8),
+            np.ones((b, side, side, 1), np.uint8),
+            rng.integers(0, 256, (b, h, w, 3)).astype(np.uint8))
+
+
+def _predict_counts():
+    """(captures, replays, eager predictions) of the serving paths."""
+    from curl_tpu_torch.infer import engine
+
+    return engine.PREDICT_CAPTURES, engine.PREDICT_REPLAYS, engine.PREDICT_EAGER
+
+
+def _since(before):
+    return tuple(a - b for a, b in zip(_predict_counts(), before))
+
+
+@pytest.mark.parametrize("b,h,w", [(1, 1080, 1920), (4, 40, 56)], ids=["1080p_b1", "b4"])
+def test_graphed_prediction_is_bitwise_the_eager_one(cuda, b, h, w):
+    """Both models at fp32 on the u8 wire: the replayed coefficients or
+    knots, and the served image, bitwise the eager path's (whose forward
+    convolutions run without TF32, so the capture's do too). The first
+    request captures, every request replays, and each is one K1 or K2
+    launch, outside the graph."""
+    from curl_tpu_torch.infer.engine import Enhancer
+
+    for model, mod in zip(_tiny_models(cuda), (tk, ck)):
+        enh = Enhancer(model, backbone_size=64, out_u8=True)
+        batch = _serving_batch(30, b, 64, h, w)
+        eager_pred = enh._predict(*batch[:2], graphed=False)
+        eager = enh._full(*batch, graphed=False)
+        for call in range(2):
+            before, launches = _predict_counts(), mod.LAUNCHES
+            out = enh.enhance_image(*batch)
+            torch.cuda.synchronize()
+            assert _since(before) == (1 if call == 0 else 0, 1, 0)
+            assert mod.LAUNCHES - launches == 1
+            assert out.dtype == torch.uint8 and torch.equal(out, eager)
+        pred = enh._predict(*batch[:2])
+        assert len(pred) == len(eager_pred)
+        for got, expect in zip(pred, eager_pred):
+            assert got.dtype == torch.float32 and torch.equal(got, expect)
+
+
+def test_requests_a_b_a_each_equal_their_eager_result(cuda):
+    """One capture serves new data each replay, and a caller's coefficients
+    or knots are its own: a later replay does not overwrite them."""
+    from curl_tpu_torch.infer.engine import Enhancer
+
+    for model in _tiny_models(cuda):
+        enh = Enhancer(model, backbone_size=64, out_u8=True)
+        a, b = _serving_batch(31, 1, 64, 72, 96), _serving_batch(32, 1, 64, 72, 96)
+        eager = {"a": enh._full(*a, graphed=False), "b": enh._full(*b, graphed=False)}
+        eager_pred = enh._predict(*a[:2], graphed=False)
+        kept = enh._predict(*a[:2])
+        outs = [enh.enhance_image(*x) for x in (a, b, a)]
+        for got, name in zip(outs, "aba"):
+            assert torch.equal(got, eager[name]), name
+        for got, expect in zip(kept, eager_pred):
+            assert torch.equal(got, expect)
+        assert len(enh._predict_graphs) == 1
+
+
+def test_a_second_view_signature_is_a_second_capture(cuda):
+    from curl_tpu_torch.infer.engine import Enhancer
+
+    for model in _tiny_models(cuda):
+        enh = Enhancer(model, backbone_size=64, out_u8=True)
+        before = _predict_counts()
+        for side in (64, 96, 64):
+            x = _serving_batch(33, 2, side, 40, 56)
+            assert torch.equal(enh.enhance_image(*x), enh._full(*x, graphed=False)), side
+        as_float = tuple(v.astype(np.float32) / 255 for v in x[:2]) + (x[2],)
+        assert torch.equal(enh.enhance_image(*as_float), enh._full(*as_float, graphed=False))
+        assert _since(before)[:2] == (3, 4) and len(enh._predict_graphs) == 3
+
+
+def test_enhance_stream_replays_and_equals_the_eager_outputs(cuda):
+    from curl_tpu_torch.infer.engine import Enhancer
+
+    for model, mod in zip(_tiny_models(cuda), (tk, ck)):
+        enh = Enhancer(model, backbone_size=64, out_u8=True)
+        batches = [_serving_batch(40 + i, 4, 64, 40, 56) for i in range(6)]
+        eager = [enh._full(*x, graphed=False) for x in batches]
+        before, launches = _predict_counts(), mod.LAUNCHES
+        outs = list(enh.enhance_stream(iter(batches), max_in_flight=4))
+        assert _since(before) == (1, 6, 0) and mod.LAUNCHES - launches == 6
+        for got, expect in zip(outs, eager):
+            assert torch.equal(got, expect)
+
+
+def test_enhance_chained_captures_no_prediction_of_its_own(cuda):
+    """Inside the chained capture, and in its warm-up, the prediction is
+    eager: the outer graph records it, and its outputs are the eager path's."""
+    from curl_tpu_torch.infer.engine import Enhancer
+
+    rng = np.random.default_rng(34)
+    for model in _tiny_models(cuda):
+        enh = Enhancer(model, backbone_size=32, out_u8=True)
+        small = rng.integers(0, 256, (3, 2, 32, 32, 3)).astype(np.uint8)
+        mask = np.ones((3, 2, 32, 32, 1), np.uint8)
+        target = rng.integers(0, 256, (3, 2, 40, 56, 3)).astype(np.uint8)
+        before = _predict_counts()
+        outs, _ = enh.enhance_chained(small, mask, target)
+        assert _since(before) == (0, 0, 4)  # the warm-up and the three captured
+        before = _predict_counts()
+        outs, _ = enh.enhance_chained(small, mask, target)
+        assert _since(before) == (0, 0, 0) and enh._predict_graphs == {}
+        for k in range(3):
+            assert torch.equal(outs[k], enh._full(small[k], mask[k], target[k], graphed=False))
+
+
+def test_a_bf16_compute_dtype_keys_apart(cuda):
+    from curl_tpu_torch.infer.engine import Enhancer
+
+    model = _tiny_models(cuda)[0]
+    enh = Enhancer(model, backbone_size=64, out_u8=False)
+    x = _serving_batch(35, 2, 64, 40, 56)
+    outs = {}
+    for dtype in (torch.float32, torch.bfloat16, torch.float32):
+        model.compute_dtype = dtype
+        outs[dtype] = enh.enhance_image(*x)
+        assert torch.equal(outs[dtype], enh._full(*x, graphed=False)), dtype
+    assert len(enh._predict_graphs) == 2
+    assert not torch.equal(outs[torch.float32], outs[torch.bfloat16])
+
+
 def test_exported_program_on_cuda_holds_the_ops(cuda, tmp_path):
     """torch.export on CUDA records each kernel as its custom op; the loaded
     program runs it at two sizes against the model's own forward."""

@@ -20,7 +20,8 @@ from curl_tpu_torch.utils import profiling
 
 PACKAGE = Path(__file__).resolve().parents[1] / "curl_tpu_torch"
 SPANS = {"curl_tpu_torch::engine.batch", "curl_tpu_torch::engine.upload",
-         "curl_tpu_torch::model.predict", "curl_tpu_torch::k1.backward"}
+         "curl_tpu_torch::model.predict", "curl_tpu_torch::model.replay",
+         "curl_tpu_torch::k1.backward"}
 
 
 def _defined_names() -> set:
