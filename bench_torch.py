@@ -81,8 +81,8 @@ WIRES = ("float32", "bfloat16", "uint8")
 HEADLINE_METRIC = "1080p_enhanced_images_per_sec_per_chip"
 # Phase C's wire: the default headline's (bf16 target read, u8 output write).
 FAST_WIRE, FAST_OUT_U8 = "bfloat16", True
-# The device ceiling: K batches a CUDA graph, as chip_smoke.py phase 11a
-# measures the chained replay.
+# The device ceiling: K batches a CUDA graph, the device time of one batch
+# in a replay of enhance_chained's graph.
 CEILING_CHAIN = 4
 CEILING_REPLAYS = 5
 # Each kernel's launch counter: K1 (the tri-space residual), K2 (the curve
@@ -201,7 +201,7 @@ def measure_ceiling(batch: int, dtype: str, impl: str = "cuda", compute_dtype: s
                     out_u8: bool = False, device=None) -> float:
     """img/s the device sustains on the headline workload: the device time
     of one batch in a replay of `enhance_chained`'s CUDA graph at K =
-    CEILING_CHAIN, from CUDA events, as chip_smoke.py phase 11a times it.
+    CEILING_CHAIN, from CUDA events.
     Needs a CUDA device."""
     enh, inputs = serving_setup(batch, dtype, impl, compute_dtype, out_u8, device)
     if enh.device.type != "cuda":

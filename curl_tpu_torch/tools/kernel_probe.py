@@ -1,5 +1,6 @@
-"""One-time measurements of the port's kernels that `chip_smoke.py` does not
-repeat on every run, on one NVIDIA GPU:
+"""One-time measurements of the port's kernels, which the card checks
+(`chip_smoke.py`, the card suite) do not repeat on every run, on one NVIDIA
+GPU:
 
     python3 -m curl_tpu_torch.tools.kernel_probe [--sweep D [D ...]]
         [--other-order D [D ...]] [--k2-chunks C [C ...]] [--math-check]
@@ -28,12 +29,11 @@ repeat on every run, on one NVIDIA GPU:
    (`git archive`): its K1 at degrees 1-6 (each with the header its own
    `poly_tables.py` generates) and its K2 are built with the same flags.
    K1 at BITWISE_DEGREES (1-6) and K2's runtime-count instance are held
-   bitwise against this version's on the inputs of `chip_smoke.py` phases
-   2 and 5 (fp32 residual and composite, a row band at row0 = 540, odd
-   17x23, non-spatial, bf16, the u8 wire; K2 at (8, 12, 20), (2, 65, 5),
-   (2, 96, 257), 96 and 257 knots, with and without a mask), K1 with the
-   same ptxas lines. K1 at a degree left out of BITWISE_DEGREES (one whose
-   forward a version redesigns) is held to the parent's within K1's
+   bitwise against this version's (K1: fp32 residual and composite, a row
+   band at row0 = 540, odd 17x23, non-spatial, bf16, the u8 wire; K2 at
+   (8, 12, 20), (2, 65, 5), (2, 96, 257), 96 and 257 knots, with and
+   without a mask), K1 with the same ptxas lines. K1 at a degree left out
+   of BITWISE_DEGREES (one whose forward a version redesigns) is held to the parent's within K1's
    contract against its plain version (fp32 2e-4; bf16 99.9th percentile
    1e-2; u8 1 level, 99.9% equal), and 16-knot K2 within K2's
    (fp32 all but 1e-5 of the values within 2e-4 at knot std 0.05; u8 99.9%
@@ -81,11 +81,10 @@ repeat on every run, on one NVIDIA GPU:
    difference), bitwise equal over two calls; and ptxas's registers and
    spills of each instance.
 3. The cost of the plain versions, which are also K2's backward: K1's and
-   K2's plain forward at 1080p batch 8 (K2 at 16 knots with a mask, as
-   `chip_smoke.py` times it), and one training step through each kernel's
-   autograd.Function (kernel forward; K1's backward kernel to the
-   coefficients, K2's backward by autograd through the plain version to the
-   knots) at the reference
+   K2's plain forward at 1080p batch 8 (K2 at 16 knots with a mask), and
+   one training step through each kernel's autograd.Function (kernel
+   forward; K1's backward kernel to the coefficients, K2's backward by
+   autograd through the plain version to the knots) at the reference
    trainer's default batch of 32 crops of 256x256 (K2 at the curve model's
    48/48/64 knots). Each is timed in turns with three forms of the bounds
    wherever the plain versions call `clip` and `floor_at`: the port's (one
@@ -129,10 +128,10 @@ CURVE_KNOTS = (48, 48, 64)
 ITERS = 20
 TOL = 2e-4
 BF16_P999_TOL = 1e-2
-# K2's contracts against its plain version (chip_smoke.py): at 16 knots'
-# steepness of knot std 0.05, all but this share of the fp32 values within
-# TOL (branch flips); on the u8 wire at least U8_SAME_SHARE equal and all
-# but this share within 1 level.
+# K2's contracts against its plain version: at 16 knots' steepness of knot
+# std 0.05, all but this share of the fp32 values within TOL (branch
+# flips); on the u8 wire at least U8_SAME_SHARE equal and all but this
+# share within 1 level.
 CURVE_FLIP_SHARE = 1e-5
 U8_SAME_SHARE = 0.999
 
@@ -438,7 +437,7 @@ def k2_agree(what: str, a, b) -> None:
 
 def steep_knots(counts, std16: float = 0.05) -> float:
     """Knot-logit std at which curves of these counts are as steep as 16
-    knots at `std16` (chip_smoke.py's knot_std)."""
+    knots at `std16`."""
     return std16 * 15 / (max(counts) - 1)
 
 

@@ -1,7 +1,9 @@
 """Import hygiene of the port: `curl_tpu_torch`, `chip_smoke.py`,
-`bench_torch.py` and `__graft_entry_torch__.py` import torch and never jax,
-flax or the JAX package (only the port's tests import both); the TFLite
-exports load TensorFlow only when they run."""
+`bench_torch.py`, `__graft_entry_torch__.py` and the card tests
+(tests/test_torch_cuda.py, tests/test_torch_cuda_paths.py and the
+tests/torch_ranks.py they share) import torch and never jax, flax or the
+JAX package (only the port's CPU tests import both); the TFLite exports
+load TensorFlow only when they run."""
 
 import re
 import subprocess
@@ -118,8 +120,10 @@ def test_importing_the_exports_loads_no_tensorflow():
     assert proc.stdout.strip() == "", f"loaded at import: {proc.stdout}"
 
 
-_SOURCES = sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "bench_torch.py",
-                                             REPO / "__graft_entry_torch__.py"]
+_SOURCES = sorted(PACKAGE.rglob("*.py")) + [
+    REPO / "bench_torch.py", REPO / "__graft_entry_torch__.py", REPO / "chip_smoke.py",
+    REPO / "tests" / "test_torch_cuda.py", REPO / "tests" / "test_torch_cuda_paths.py",
+    REPO / "tests" / "torch_ranks.py"]
 
 
 @pytest.mark.parametrize("path", _SOURCES, ids=lambda p: str(p.relative_to(REPO)))

@@ -5,9 +5,9 @@ and both models at such settings through the weight bridge.
 
 On the CPU the kernels' wrappers take their plain versions; the CUDA
 kernels at these degrees and knot counts are held to those plain versions
-on the card (tests/test_torch_cuda.py, chip_smoke.py phase 15). Tolerances:
-1e-5 for the polynomial against `curl_tpu`'s (the same chain in the same
-order, fp32 on both sides), 5e-5 against the Pallas kernel in
+on the card (tests/test_torch_cuda.py, tests/test_torch_cuda_paths.py).
+Tolerances: 1e-5 for the polynomial against `curl_tpu`'s (the same chain
+in the same order, fp32 on both sides), 5e-5 against the Pallas kernel in
 interpret mode and for the residuals and the models' outputs
 (docs/PARITY.md sections 1b and 3), 2e-4 for K2 against its Pallas kernel (its ten sequential curves).
 
