@@ -36,10 +36,22 @@ after it, before any check launches a kernel again.
      kernel step launches K1 once, calls K1's backward kernel once and
      never the plain recompute; the plain step launches neither. Every K3
      call (the tie-exact clip's backward) in both steps is bitwise its
-     plain version on the same inputs.
+     plain version on the same inputs. Then the cell's main path, the
+     step's CUDA graph, on the kernel model and the same batch: the second
+     call captures it (the wrappers count its K1 launch, its backward
+     kernel call and the eager step's K3 calls) and takes one step, the
+     third replays it, which no wrapper counts: `train/steps.py`'s
+     `STEP_CAPTURES` and `STEP_REPLAYS` move by one each, and torch.profiler
+     finds in the replay one K1, one K1 backward kernel and as many K3
+     kernels as the eager step launched. Two copies of the state taken
+     before the replay each take one eager step on the batch: the replayed
+     step's loss, parameters and BN buffers are within twice the gap of the
+     two eager ones (or 1e-6, where those agree bitwise), the integer
+     buffers equal.
 
 The second-to-last line is the kernels' record, {"kernels": [...]}: for
-each of K1, K2, K1's backward and K3, its launches on its path, its
+each of K1, K2, K1's backward and K3, its launches on its path (the
+training kernels': in the replayed step), its
 distance there from its plain version, and its bound at that path's shape
 (`bound_ms`, the least time the H100 SXM's published peaks allow,
 `curlbench/counts/`); `library_ms` is null, as no library call stands
@@ -71,6 +83,8 @@ PLAIN_CHUNK = 8  # images of 1080p a plain-version call takes at once
 KNOT_STD = 0.05  # 16 knots a curve: the steepness K2's contracts are stated at
 STEP_LOSS_RTOL = 1e-4
 HEAD_GRAD_REL_L2 = 1e-3
+GRAPH_FLOOR = 1e-6  # the replayed step's gap where two eager steps agree bitwise
+K1_NAME, K1B_NAME, K3_NAME = "trispace_residual_kernel", "trispace_backward_kernel", "tie_clip_grad"
 
 
 def log(msg: str) -> None:
@@ -146,6 +160,36 @@ class Recorder:
 
     def __exit__(self, *exc):
         setattr(self.module, self.name, self.fn)
+
+
+def kernel_names(fn) -> tuple:
+    """(fn(), the names of the CUDA kernels torch.profiler records around
+    it). A process's first profiler sessions can come back with no CUDA
+    record, so sessions around one known kernel run first until one holds
+    it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def names(f):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = f()
+            torch.cuda.synchronize()
+        return out, [e.name for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    if not any(names(lambda: torch.ones(8, device="cuda").add_(1))[1] for _ in range(10)):
+        raise AssertionError("torch.profiler records no CUDA kernel")
+    return names(fn)
+
+
+def rel_gap(a: list, b: list) -> float:
+    """Relative L2 of two lists of tensors, flattened and joined (float64)."""
+    import torch
+
+    x = torch.cat([t.detach().double().reshape(-1) for t in a])
+    y = torch.cat([t.detach().double().reshape(-1) for t in b])
+    return float((x - y).norm() / y.norm().clamp_min(1e-30))
 
 
 def u8_agreement(got, plain) -> tuple[float, int, int]:
@@ -307,7 +351,7 @@ def train(dev, launches: Launches, kp) -> list:
         k3["unequal"] += not torch.equal(out, clk.tie_clip_grad_reference(g, x, lo, hi))
         return out
 
-    results = []
+    results, states = [], []
     clk.tie_clip_grad = clip_checked
     try:
         for model in (kernel_model, plain_model):
@@ -315,6 +359,7 @@ def train(dev, launches: Launches, kp) -> list:
                 model.parameters(),
                 state_lib.onecycle_schedule(r["epochs"], r["steps_per_epoch"], r["peak_lr"]),
                 r["adam_b1"], r["adam_b2"]))
+            states.append(state)
             launches.reset()
             loss = float(step(state, batch, torch.Generator(device=dev))["loss"])
             torch.cuda.synchronize()
@@ -340,17 +385,70 @@ def train(dev, launches: Launches, kp) -> list:
         raise AssertionError("the kernel step's gradient or BN buffers disagree")
     if min(k_n["K3"], p_n["K3"]) == 0 or k3["unequal"]:
         raise AssertionError("K3 is not launched in both steps, or differs from its plain version")
+    replay_n = replay(step, states[0], batch, launches, k_n["K3"])
     pixels = b * crop * crop
     # K1's backward reads the fp32 image and the upstream gradient once.
     bwd_ms, bwd_by = bound_ms(kp.BACKWARD_FLOP_PER_PIXEL * pixels, 2 * 12 * pixels)
     clip_ms, clip_by = bound_ms(0.0, 12 * k3["values"])  # gradient and input read, one written
-    return [{"name": "trispace_backward", "cell": CELLS["train"], "launches": k_n["K1B"],
+    return [{"name": "trispace_backward", "cell": CELLS["train"], "launches": replay_n[K1B_NAME],
              "plain_recomputes": k_n["K1P"], "head_grad_rel_l2": rel,
              "loss_rel_diff": abs(k_loss - p_loss) / abs(p_loss),
              "bound_ms": bwd_ms, "bound_by": bwd_by, "library_ms": None},
-            {"name": "tie_clip_grad", "cell": CELLS["train"], "launches": k_n["K3"],
+            {"name": "tie_clip_grad", "cell": CELLS["train"], "launches": replay_n[K3_NAME],
              "values": k3["values"], "bitwise": True,
              "bound_ms": clip_ms, "bound_by": clip_by, "library_ms": None}]
+
+
+def replay(step, state, batch, launches: Launches, eager_k3: int) -> dict:
+    """Path 3's main path: the step's CUDA graph on `state`, whose first
+    call of this signature ran eagerly. Returns the kernels counted in the
+    replayed step, by name."""
+    import torch
+
+    from curl_tpu_torch.train import steps as steps_lib
+
+    def counters():
+        return steps_lib.STEP_CAPTURES, steps_lib.STEP_REPLAYS, steps_lib.STEP_EAGER
+
+    before = counters()
+    launches.reset()
+    captured = float(step(state, batch, None)["loss"])
+    torch.cuda.synchronize()
+    expect(launches.read(), "capture", K1=1, K1B=1, K3=eager_k3)
+    twins = [copy.deepcopy(state) for _ in range(2)]
+    launches.reset()
+    loss, names = kernel_names(lambda: float(step(state, batch, None)["loss"]))
+    expect(launches.read(), "replay (no wrapper runs)")
+    moved = tuple(b - a for a, b in zip(before, counters()))
+    n = {name: sum(name in k for k in names) for name in (K1_NAME, K1B_NAME, K3_NAME)}
+    log(f"  captured and replayed steps: losses {captured:.7f}, {loss:.7f}; captures, replays, "
+        f"eager steps {moved}; kernels in the replay {n} of {len(names)}")
+    if moved != (1, 1, 0) or not np.isfinite([captured, loss]).all():
+        raise AssertionError("the third step of a signature does not replay its capture")
+    if n != {K1_NAME: 1, K1B_NAME: 1, K3_NAME: eager_k3}:
+        raise AssertionError(f"the replay's kernels are not the eager step's: {n}")
+
+    eager = []
+    for twin in twins:
+        twin_loss = step(twin, batch, None)["loss"]
+        eager.append({"loss": [twin_loss.reshape(1).cpu()], "params": list(twin.model.parameters()),
+                      "buffers": list(twin.model.buffers())})
+    got = {"loss": [torch.tensor([loss])],
+           "params": list(state.model.parameters()), "buffers": list(state.model.buffers())}
+    a, b = eager
+    gaps = {}
+    for key in got:
+        floats = [i for i, t in enumerate(a[key]) if t.is_floating_point()]
+        gaps[key] = tuple(rel_gap([x[key][i] for i in floats], [a[key][i] for i in floats])
+                          for x in (got, b))
+    same_ints = all(torch.equal(x, y) for x, y in zip(got["buffers"], a["buffers"])
+                    if not x.is_floating_point())
+    log("  replayed step against an eager one (relative L2; two eager steps' gap): "
+        + ", ".join(f"{k} {g:.2e} ({e:.2e})" for k, (g, e) in gaps.items())
+        + f"; integer buffers equal: {same_ints}")
+    if any(g > max(2 * e, GRAPH_FLOOR) for g, e in gaps.values()) or not same_ints:
+        raise AssertionError("the replayed step disagrees with an eager step from its state")
+    return n
 
 
 def main() -> int:

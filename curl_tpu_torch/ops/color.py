@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 from torch import Tensor
 
+from curl_tpu_torch.device import constant
 from curl_tpu_torch.ops import color_planes as cp
 
 # Rows = fx,fy,fz; cols = L,a,b.
@@ -44,8 +45,9 @@ def _const(values, like: Tensor) -> Tensor:
     package holds these matrices as float32 arrays, so a float64 evaluation
     (the yardstick of the fp32 paths) computes the function that the fp32
     paths and the kernels round, not one with other constants. fp32 and
-    bf16 get the values they would get directly."""
-    return torch.tensor(values, dtype=torch.float32, device=like.device).to(like.dtype)
+    bf16 get the values they would get directly. On the card, made once a
+    device and dtype (`device.constant`)."""
+    return constant(like, ("color", values), lambda: torch.tensor(values, dtype=torch.float32))
 
 
 def _mat(img: Tensor, m) -> Tensor:

@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import Tensor
 
+from curl_tpu_torch.device import constant
 from curl_tpu_torch.ops.color_planes import floor_at
 
 MSSSIM_WEIGHTS = (0.0448, 0.2856, 0.3001, 0.2363, 0.1333)
@@ -89,7 +90,8 @@ class _MatmulBlur(torch.autograd.Function):
     @staticmethod
     def forward(ctx, img: Tensor, window_size: int, sigma: float) -> Tensor:
         mh, mw = (
-            torch.from_numpy(_blur_matrix(n, window_size, sigma)).to(img.device, img.dtype)
+            constant(img, ("blur", n, window_size, sigma),
+                     lambda n=n: torch.from_numpy(_blur_matrix(n, window_size, sigma)))
             for n in (img.shape[1], img.shape[2])
         )
         ctx.save_for_backward(mh, mw)
@@ -113,7 +115,8 @@ def _depthwise_blur(img: Tensor, window_size: int, sigma: float) -> Tensor:
     padding (W + W taps a pixel instead of W * W). The forward runs without
     TF32; the backward follows the run's setting (`config.apply_precision`)."""
     c = img.shape[-1]
-    g = torch.from_numpy(_gaussian_1d(window_size, sigma)).to(img.device, img.dtype)
+    g = constant(img, ("gaussian", window_size, sigma),
+                 lambda: torch.from_numpy(_gaussian_1d(window_size, sigma)))
     pad = window_size // 2
     x = img.permute(0, 3, 1, 2)
     with _no_tf32():
@@ -166,10 +169,30 @@ def _avg_pool_2x2(img: Tensor) -> Tensor:
     return img.reshape(b, h // 2, 2, w // 2, 2, ch).mean(dim=(2, 4))
 
 
+class _RowProduct(torch.autograd.Function):
+    """`torch.prod(x, dim=1)` with the backward torch takes where no factor
+    is zero, g * (prod / x), but without its host sync: torch's own
+    backward first counts the zeros on the host, which a CUDA graph cannot
+    capture. The factors here are powers of values floored at 1e-6, so
+    none is zero."""
+
+    @staticmethod
+    def forward(ctx, x: Tensor) -> Tensor:
+        out = torch.prod(x, dim=1)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad: Tensor) -> Tensor:
+        x, out = ctx.saved_tensors
+        return grad.unsqueeze(1) * (out.unsqueeze(1) / x)
+
+
 def ms_ssim(img1: Tensor, img2: Tensor, window_size: int = 11, levels: int = 5) -> Tensor:
     """Multi-scale SSIM per image: (B, H, W, C) x2 -> (B,), with the
     reference's simple normalize and last-level broadcast; differentiable."""
-    weights = torch.tensor(MSSSIM_WEIGHTS[:levels], dtype=img1.dtype, device=img1.device)
+    weights = constant(img1, ("msssim_weights", levels),
+                       lambda: torch.tensor(MSSSIM_WEIGHTS[:levels], dtype=img1.dtype))
     ssims, mcs = [], []
     for _ in range(levels):
         s, cs = ssim(img1, img2, window_size=window_size)
@@ -181,4 +204,4 @@ def ms_ssim(img1: Tensor, img2: Tensor, window_size: int = 11, levels: int = 5) 
     mcs_arr = floor_at((torch.stack(mcs, dim=1) + 1.0) / 2.0, 1e-6)
     pow_mcs = mcs_arr**weights
     pow_ssim = ssims_arr**weights
-    return torch.prod(pow_mcs[:, :-1] * pow_ssim[:, -1:], dim=1)
+    return _RowProduct.apply(pow_mcs[:, :-1] * pow_ssim[:, -1:])

@@ -10,7 +10,10 @@ counterpart of the JAX case:
 
   full, full_noaug  the train step (`train/steps.py::make_train_step`) with
                     and without augmentation, on a private copy of the
-                    state, one generator a case;
+                    state, one generator a case; on the card `full_noaug`
+                    times replays of the step's CUDA graph (its two warm-up
+                    calls are the eager step and the capture), `full` eager
+                    steps;
   fwd_loss          the model in eval mode without grad, then `curl_loss`;
   backbone          backbone and head in train mode: the gradient over the
                     parameters of the sum of the three coefficient stacks;

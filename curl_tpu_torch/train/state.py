@@ -27,9 +27,10 @@ counts.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
-from typing import Callable, Iterable, Union
+from typing import Callable, Iterable, Iterator, Union
 
 import torch
 from torch import Tensor, nn
@@ -127,6 +128,23 @@ class Optimizer:
         del flat
         self.adam.step()
         self.count += finite.long() if self.guard_nonfinite else 1
+
+    @contextlib.contextmanager
+    def capturable(self) -> Iterator[None]:
+        """Adam's `capturable` flag on while `step` is captured as a CUDA
+        graph, then each group's own value back (a state dict keeps what it
+        had). The flag gates only torch's check that a capture may record the
+        step: fused Adam keeps its step counts on the device and takes the
+        same path with it on or off."""
+        groups = self.adam.param_groups
+        saved = [group["capturable"] for group in groups]
+        for group in groups:
+            group["capturable"] = True
+        try:
+            yield
+        finally:
+            for group, flag in zip(groups, saved):
+                group["capturable"] = flag
 
     def state_dict(self) -> dict:
         return {"adam": self.adam.state_dict(), "count": self.count.clone()}

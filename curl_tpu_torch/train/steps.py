@@ -6,6 +6,16 @@ model's smoothness term), the backward pass and the guarded optimizer
 update. It returns the loss as a device scalar and syncs nothing. An eval
 step reduces per-image loss, PSNR and MS-SSIM to sums on the device.
 
+On `cuda`, on one rank and without augmentation (`replayable`), the whole
+step is a CUDA graph (`_StepGraph`): the first call for a signature
+(`signature`) runs eagerly, which builds K1's backward library and K3's
+functor, lets cuDNN choose its algorithms and makes Adam's state; the next
+captures the step and replays it once; every later call copies the batch
+into the graph's static inputs and replays. The host enqueues one graph
+launch a step instead of every kernel of it. Each call is one optimizer
+update with the same mathematics either way, and is counted in
+`STEP_CAPTURES`, `STEP_REPLAYS` or `STEP_EAGER`.
+
 Over several ranks (`parallel.mesh`) each holds its shard of the global
 batch, and a step computes what the JAX step computes on the whole batch:
 the augmentation draws are the global batch's (`augment.augment_batch`),
@@ -20,19 +30,27 @@ ranks' totals.
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
 from torch import Tensor
 
 from curl_tpu_torch.data import augment as aug
+from curl_tpu_torch.device import keeping
 from curl_tpu_torch.models import losses, metrics
 from curl_tpu_torch.ops import ssim as ssim_ops
 from curl_tpu_torch.ops import wire
 from curl_tpu_torch.parallel import distributed
 from curl_tpu_torch.parallel.mesh import Mesh
 from curl_tpu_torch.train.state import TrainState
+from curl_tpu_torch.utils.profiling import span
+
+# Train steps of `make_train_step`: `_StepGraph` captures (the call that also
+# takes its first step) and replays; every other call runs eagerly.
+STEP_CAPTURES = 0
+STEP_REPLAYS = 0
+STEP_EAGER = 0
 
 
 def _normalize_batch(inp: Tensor, out: Tensor, mask: Tensor) -> tuple[Tensor, Tensor, Tensor]:
@@ -57,6 +75,69 @@ def _first_row(mesh: Optional[Mesh], local_batch: int) -> int:
     return 0 if mesh is None else mesh.data_index() * local_batch
 
 
+def replayable(device: torch.device, augment: bool, ranks: int, capturing: bool) -> bool:
+    """Whether a train step on a batch on `device` runs as a CUDA graph: on
+    `cuda`, without augmentation (its draws come from the caller's
+    generator), on one rank (the all-reduces of several stay eager), and
+    outside another stream capture (`capturing`)."""
+    return device.type == "cuda" and not augment and ranks == 1 and not capturing
+
+
+def signature(state: TrainState, inputs: Sequence[Tensor]) -> tuple:
+    """What a captured step is kept for: the `TrainState` object; the
+    batch's shapes, dtypes and device; the model's compute dtype and the
+    TF32 settings, which the eager step reads; and the addresses of every
+    tensor outside the graph that the step reads or updates in place: the
+    model's parameters and buffers, Adam's state and learning rate, the
+    applied-update count. A model or optimizer rebuilt in new storage gets a
+    new capture, and so does an optimizer state dict loaded (torch's Adam
+    takes the dict's tensors and a copy of each group's learning rate); a
+    model's `load_state_dict` copies into the same storage and keeps it."""
+    opt = state.optimizer
+    tensors = [*state.model.parameters(), *state.model.buffers(), opt.count,
+               *(group["lr"] for group in opt.adam.param_groups),
+               *(t for per_param in opt.adam.state.values() for t in per_param.values()
+                 if isinstance(t, Tensor))]
+    return (id(state), tuple((tuple(x.shape), x.dtype, x.device) for x in inputs),
+            getattr(state.model, "compute_dtype", None),
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+            tuple(t.data_ptr() for t in tensors))
+
+
+class _StepGraph:
+    """One train step captured as a CUDA graph, between static copies of the
+    batch (input_img, output_img, mask) and the static loss.
+
+    It is captured at the second call of its signature, after the first ran
+    eagerly: capturing records the step without taking it, and `run` then
+    takes it. Every tensor the step keeps is where the capture found it;
+    the graph holds `state`, and the device constants the eager call read
+    (`device.keeping`), so that storage lives as long as the graph. A
+    replay leaves each parameter's `.grad` in the graph's own memory, which
+    the next replay overwrites.
+
+    Only this thread's calls are held to the capture's rules
+    (`thread_local`): the training loop's prefetch thread keeps pinning and
+    copying the next batch meanwhile."""
+
+    def __init__(self, state: TrainState, step: Callable, inputs: Sequence[Tensor],
+                 constants: dict):
+        self.state, self.constants = state, constants
+        self.inputs = [torch.empty(x.shape, dtype=x.dtype, device=x.device) for x in inputs]
+        self.graph = torch.cuda.CUDAGraph()
+        with keeping(constants), state.optimizer.capturable(), torch.cuda.graph(
+                self.graph, capture_error_mode="thread_local"):
+            self.loss = step(state, *self.inputs, None)
+
+    def run(self, inputs: Sequence[Tensor]) -> Tensor:
+        for static, x in zip(self.inputs, inputs):
+            static.copy_(x, non_blocking=True)
+        with span("curl_tpu_torch::train.replay"):
+            self.graph.replay()
+        # The next replay overwrites the static loss.
+        return self.loss.clone()
+
+
 def make_train_step(
     ssim_window: int = 11, augment: bool = True, reg_weight: float = 1e-4,
     mesh: Optional[Mesh] = None,
@@ -67,13 +148,18 @@ def make_train_step(
     `mesh` (default: one process); `generator` (on their device, seeded
     alike on every rank) drives the augmentation. For models that return a
     smoothness regularizer, its batch mean joins the loss scaled by
-    `reg_weight`."""
+    `reg_weight`.
 
-    def train_step(state: TrainState, batch: dict, generator: torch.Generator) -> dict:
+    Where `replayable` holds, the step replays the `_StepGraph` of its
+    `signature` from that signature's third call on (the module's
+    docstring). The step function keeps its graphs, and the states they and
+    the eager first calls stepped, for as long as it lives."""
+
+    def one_step(state: TrainState, inp: Tensor, out: Tensor, mask: Tensor,
+                 generator: Optional[torch.Generator]) -> Tensor:
         # Augment before normalizing: on the u8 wire the flip and rotate
         # gathers move a quarter of the bytes, and nearest resampling is a
         # permutation, so the values are the same in either order.
-        inp, out, mask = batch["input_img"], batch["output_img"], batch["mask"]
         if augment:
             b = inp.shape[0]
             inp, out, mask = aug.augment_batch(
@@ -81,7 +167,6 @@ def make_train_step(
                 b * (1 if mesh is None else mesh.data))
         inp, out, mask = _normalize_batch(inp, out, mask)
 
-        state.model.train()
         enhanced, reg = _split_model_output(state.model(inp, mask))
         mask_count = None
         if distributed.world_size() > 1:
@@ -93,8 +178,40 @@ def make_train_step(
         state.optimizer.zero_grad()
         loss.backward()
         state.optimizer.step()
-        state.step += 1
-        return {"loss": distributed.all_reduce_mean_(loss.detach().clone())}
+        return loss.detach()
+
+    graphs: dict[tuple, _StepGraph] = {}
+    # Signatures whose first call ran eagerly: the state each stepped and the
+    # device constants it read.
+    warmed: dict[tuple, tuple[TrainState, dict]] = {}
+
+    def train_step(state: TrainState, batch: dict, generator: torch.Generator) -> dict:
+        global STEP_CAPTURES, STEP_REPLAYS, STEP_EAGER
+        inputs = (batch["input_img"], batch["output_img"], batch["mask"])
+        device = inputs[0].device
+        with span("curl_tpu_torch::train.step"):
+            state.model.train()
+            key = None
+            if replayable(device, augment, distributed.world_size(),
+                          device.type == "cuda" and torch.cuda.is_current_stream_capturing()):
+                key = signature(state, inputs)
+            graph = graphs.get(key)
+            if graph is not None:
+                STEP_REPLAYS += 1
+            elif key in warmed:
+                graph = graphs[key] = _StepGraph(state, one_step, inputs, warmed.pop(key)[1])
+                STEP_CAPTURES += 1
+            if graph is not None:
+                loss = graph.run(inputs)
+            else:
+                with keeping() as constants:
+                    loss = distributed.all_reduce_mean_(
+                        one_step(state, *inputs, generator).clone())
+                STEP_EAGER += 1
+                if key is not None:
+                    warmed[signature(state, inputs)] = state, constants
+            state.step += 1
+        return {"loss": loss}
 
     return train_step
 

@@ -1256,30 +1256,38 @@ def test_tool_adobe5k_run_on_cuda(cuda, tmp_path):
 def test_tool_train_profile_on_cuda(cuda):
     """Every case in the tool's order, each case's launches counted around
     its timed calls: K1 once an iteration and a warm-up call in the cases
-    that run the residual, never in the others; K2 never; K3 in the cases
-    that train through the residual."""
+    that run the residual, never in the others; `full_noaug`, whose step
+    replays a CUDA graph from its third call on, K1 at its two warm-up calls
+    (the eager step and the capture) and a replay an iteration; K2 never;
+    K3 in the cases that train through the residual."""
     from curl_tpu_torch.tools import train_profile
+    from curl_tpu_torch.train import steps as steps_lib
 
     iters = 3
+    replays = steps_lib.STEP_REPLAYS
     lines = train_profile.main(["--case", "all", "--backbone", "tiny", "--batch", "2",
                                 "--crop", "64", "--iters", str(iters)], count=counted)
+    assert steps_lib.STEP_REPLAYS - replays == iters
     assert [line["case"] for line in lines] == list(train_profile.CASES)
     through_k1 = {"full", "full_noaug", "fwd_loss", "apply", *train_profile.ABLATIONS}
     for line in lines:
         n = line["launches"]
         assert line["impl"] == "cuda"
         assert np.isfinite(line["ms_per_step"]) and line["ms_per_step"] > 0
-        assert n["K1"] == (iters + 2 if line["case"] in through_k1 else 0), line
+        k1 = 2 if line["case"] == "full_noaug" else iters + 2
+        assert n["K1"] == (k1 if line["case"] in through_k1 else 0), line
         assert n["K2"] == 0
         if line["case"] in ("full", "full_noaug", "apply"):
             assert n["K3"] > 0, line
 
 
 def test_k1_backward_span_holds_its_launches(cuda):
-    """A K1 train step under the profiler: K1's backward is one program span
-    on the autograd engine's device thread, and the device work launched
-    inside it is tied to it. The prediction is a span too. Neither is drawn
-    on the device's timeline, where it would read as work."""
+    """An eager K1 train step under the profiler (the first call of its
+    signature; later calls replay a CUDA graph): K1's backward is one
+    program span on the autograd engine's device thread, and the device
+    work launched inside it is tied to it. The prediction is a span too.
+    Neither is drawn on the device's timeline, where it would read as
+    work."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1298,7 +1306,8 @@ def test_k1_backward_span_holds_its_launches(cuda):
              "mask": np.ones((4, 64, 64, 1), np.uint8)}
     batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
     step = steps_lib.make_train_step(augment=False)
-    step(state, batch, None)  # builds the kernel outside the trace
+    # A batch of another size builds the kernels outside the trace.
+    step(state, {k: v[:2] for k, v in batch.items()}, None)
     prime_profiler()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:

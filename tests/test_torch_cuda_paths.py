@@ -2,8 +2,8 @@
 holds: serving on the u8 wire at several degrees and knot counts, the
 inference, conversion, export and training CLIs, the training CLI over
 NCCL and gloo ranks and the row-sharded apply, compute_dtype bfloat16, the
-plain residual's two polynomial forms, the banded route at 8K, and
-bench_torch.py's modes.
+train step's CUDA graph against eager steps, the plain residual's two
+polynomial forms, the banded route at 8K, and bench_torch.py's modes.
 
 Needs an NVIDIA GPU and nvcc; elsewhere every test skips. Like
 tests/test_torch_cuda.py, it imports neither jax nor the JAX package, so it
@@ -12,8 +12,9 @@ runs on a machine that has neither:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_paths.py -q
 
 Models use the tiny backbone, with weights from seed 0 and BN statistics
-from one batch; images are small except where the size is the point (the
-full-size spy's threshold, the curve model's flip share, 8K bands). The
+from one batch, except the train step's graph, at rw_t width; images are
+small except where the size is the point (the full-size spy's threshold,
+the curve model's flip share, 8K bands, the training cell's crops). The
 kernels' contracts are tests/test_torch_cuda.py's: fp32 within 2e-4; the u8
 wire at least 99.9% equal and none more than 1 apart; the curve model's ten
 chained curves may flip a hue or clip branch, so its u8 outputs are held to
@@ -81,6 +82,9 @@ BENCH_MODES = {
 }
 BENCH_SMALL = {"BENCH_HW": "270x480", "BENCH_PREDICT": str(PREDICT), "BENCH_BACKBONE": "tiny"}
 BENCH_TIMEOUT = 600.0
+# The train step's CUDA graph: rw_t at full width on the reference recipe's
+# 256² crops, batch 8, five steps (eager, capture, three replays).
+GRAPH_BATCH, GRAPH_CROP, GRAPH_STEPS = 8, 256, 5
 K1_NAME, K2_NAME = "trispace_residual_kernel", "curve_enhance_kernel"
 
 
@@ -466,29 +470,33 @@ def test_mobile_export_cli_on_cuda(cuda, served, tmp_path):
     assert list(tmp_path.glob("mobile*"))
 
 
-@pytest.fixture(scope="module")
-def dataset(cuda, tmp_path_factory):
-    """TRAIN_PAIRS + VALID_PAIRS synthetic pairs of PAIR_H x PAIR_W as PNGs
-    in the layout `scan_data_dir` reads, with images_train.txt and
+def _write_pairs(root: Path, n_train: int, n_valid: int) -> Path:
+    """`n_train` + `n_valid` synthetic pairs of PAIR_H x PAIR_W as PNGs in
+    the layout `scan_data_dir` reads, with images_train.txt and
     images_valid.txt: pair i's input from default_rng((SEED, i)), its
     target a fixed tone curve of the input, its mask ~90% ones."""
     from PIL import Image
 
-    root = tmp_path_factory.mktemp("pairs")
     dirs = {k: root / f"pairs_{k}" for k in ("input", "output", "mask")}
     for d in dirs.values():
-        d.mkdir()
-    for i in range(TRAIN_PAIRS + VALID_PAIRS):
+        d.mkdir(parents=True)
+    for i in range(n_train + n_valid):
         rng = np.random.default_rng((SEED, i))
         inp = rng.integers(0, 256, (PAIR_H, PAIR_W, 3), dtype=np.uint8)
         mask = (rng.uniform(size=(PAIR_H, PAIR_W)) < 0.9).astype(np.uint8) * 255
         Image.fromarray(inp).save(dirs["input"] / f"{i}.png")
         Image.fromarray(TONE_CURVE[inp]).save(dirs["output"] / f"{i}.png")
         Image.fromarray(mask).save(dirs["mask"] / f"{i}.png")
-    (root / "images_train.txt").write_text("\n".join(map(str, range(TRAIN_PAIRS))) + "\n")
+    (root / "images_train.txt").write_text("\n".join(map(str, range(n_train))) + "\n")
     (root / "images_valid.txt").write_text(
-        "\n".join(map(str, range(TRAIN_PAIRS, TRAIN_PAIRS + VALID_PAIRS))) + "\n")
+        "\n".join(map(str, range(n_train, n_train + n_valid))) + "\n")
     return root
+
+
+@pytest.fixture(scope="module")
+def dataset(cuda, tmp_path_factory):
+    """TRAIN_PAIRS + VALID_PAIRS pairs (`_write_pairs`)."""
+    return _write_pairs(tmp_path_factory.mktemp("pairs"), TRAIN_PAIRS, VALID_PAIRS)
 
 
 def _losses(log_text: str) -> list:
@@ -555,6 +563,64 @@ def test_training_cli_counts_its_launches_and_resumes_bitwise(cuda, dataset, tmp
                for name, v in st.items())
     steps = epochs * TRAIN_PAIRS // TRAIN_BATCH
     assert fresh.start_epoch == epochs and fresh.state.step == steps == payload["step"]
+
+
+def test_training_cli_unaugmented_replays_its_step_beside_the_prefetch_thread(
+        cuda, tmp_path, monkeypatch):
+    """`cli.main` with `--augment false` on one card: two epochs of six
+    steps of 2, an eval pass and a checkpoint after each. The first step
+    runs eagerly, the second is captured, the other ten replay the graph;
+    finite losses. While the capture runs, the prefetch thread pins and
+    copies a batch to the card (made certain: the capture waits inside the
+    optimizer's step for that copy, and the copy for the capture), which
+    only the capturing thread's calls being held to the capture's rules
+    allows."""
+    import threading
+
+    from curl_tpu_torch.cli import main as cli
+    from curl_tpu_torch.data import pipeline
+    from curl_tpu_torch.train import state as state_lib
+    from curl_tpu_torch.train import steps as steps_lib
+
+    n_train, batch, epochs = 12, 2, 2
+    dataset = _write_pairs(tmp_path / "pairs", n_train, 2)
+    capturing, copied = threading.Event(), threading.Event()
+    # The prefetch thread's fifth copy (batch 4) is the one that runs while
+    # the consumer steps its second batch, the capture.
+    calls = []
+    to_device, step = pipeline.to_device, state_lib.Optimizer.step
+
+    def copy_beside_the_capture(batch_, device):
+        calls.append(len(calls))
+        if len(calls) == 5:
+            capturing.wait(60)
+            out = to_device(batch_, device)
+            copied.set()
+            return out
+        return to_device(batch_, device)
+
+    def step_waiting_for_the_copy(self):
+        if torch.cuda.is_current_stream_capturing():
+            capturing.set()
+            copied.wait(60)
+        return step(self)
+
+    monkeypatch.setattr(pipeline, "to_device", copy_beside_the_capture)
+    monkeypatch.setattr(state_lib.Optimizer, "step", step_waiting_for_the_copy)
+    before = steps_lib.STEP_CAPTURES, steps_lib.STEP_REPLAYS, steps_lib.STEP_EAGER
+    log_dir = tmp_path / "log"
+    cli.main(["--training_img_dirpath", str(dataset), "--model", "trispace", "--augment", "false",
+              "--num_epoch", str(epochs), "--log_dirpath", str(log_dir), "--backbone", "tiny",
+              "--batch_size", str(batch), "--crop_h", str(CROP), "--crop_w", str(CROP),
+              "--valid_every", "1", "--seed", str(SEED)])
+    torch.cuda.synchronize()
+    moved = tuple(b - a for a, b in zip(before, (
+        steps_lib.STEP_CAPTURES, steps_lib.STEP_REPLAYS, steps_lib.STEP_EAGER)))
+    assert capturing.is_set() and copied.is_set()
+    steps = epochs * n_train // batch
+    assert moved == (1, steps - 2, 1)
+    losses = _losses((log_dir / "curl.log").read_text())
+    assert len(losses) == epochs and np.isfinite(losses).all(), losses
 
 
 def _cli_runs(jobs: list) -> list:
@@ -720,6 +786,170 @@ def test_bf16_train_step_against_fp32(cuda):
     assert abs(losses["bf16"] - losses["fp32"]) <= 5e-2 * abs(losses["fp32"]), losses
     assert all(p.dtype == torch.float32 and bool(torch.isfinite(p).all())
                for p in models["bf16"].parameters())
+
+
+def _graph_batches(n: int, batch: int = GRAPH_BATCH) -> list:
+    """`n` float batches of GRAPH_CROP squared crops on the card, the target
+    a gamma lift of the input, the mask ~90% ones."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
+    shape = (batch, GRAPH_CROP, GRAPH_CROP)
+    out = []
+    for _ in range(n):
+        inp = torch.rand(shape + (3,), generator=gen, device="cuda")
+        mask = (torch.rand(shape + (1,), generator=gen, device="cuda") < 0.9).float()
+        out.append({"input_img": inp, "output_img": inp ** 0.7, "mask": mask})
+    return out
+
+
+def _snapshot(state) -> dict:
+    """Clones of what a step updates: the parameters, Adam's moments and
+    step counts, the applied-update count and the model's buffers."""
+    opt = state.optimizer
+    moments = [opt.adam.state[p] for p in opt.params]
+    return {"params": [p.detach().clone() for p in opt.params],
+            "exp_avg": [m["exp_avg"].clone() for m in moments],
+            "exp_avg_sq": [m["exp_avg_sq"].clone() for m in moments],
+            "adam_step": [m["step"].clone() for m in moments],
+            "count": [opt.count.clone()],
+            "buffers": [b.clone() for b in state.model.buffers()]}
+
+
+def _gap(a: list, b: list) -> float:
+    """Relative L2 of two lists of tensors, flattened and joined (float64)."""
+    x = torch.cat([t.double().reshape(-1) for t in a])
+    y = torch.cat([t.double().reshape(-1) for t in b])
+    return float((x - y).norm() / y.norm().clamp_min(1e-30))
+
+
+@pytest.fixture(scope="module", params=["trispace", "curve"])
+def step_graph_runs(cuda, request):
+    """One rw_t state of the family (seed 0) and three copies of it, stepped
+    over the same GRAPH_STEPS batches: `graphed` by one train step function
+    (eager, capture, then replays), `eager_a` and `eager_b` by a fresh step
+    function each step (a step function's first call for a signature runs
+    eagerly). Then, on `graphed`: a batch whose target holds a NaN, a batch
+    of another size three times, and one more step traced by the profiler.
+    Each phase's step counters and kernel launches are recorded."""
+    import copy as copy_lib
+
+    from curl_tpu_torch.models import CurlCurveNet, TriSpacePolyNet
+    from curl_tpu_torch.train import state as state_lib
+    from curl_tpu_torch.train import steps as steps_lib
+
+    family = request.param
+    cls = TriSpacePolyNet if family == "trispace" else CurlCurveNet
+    model = cls(backbone="efficientnetv2_rw_t", device=cuda,
+                generator=torch.Generator().manual_seed(SEED))
+    base = state_lib.TrainState(model, state_lib.make_optimizer(
+        model.parameters(), state_lib.onecycle_schedule(100, 10), 0.5, 0.999))
+    batches = _graph_batches(GRAPH_STEPS)
+
+    def counters():
+        return (steps_lib.STEP_CAPTURES, steps_lib.STEP_REPLAYS, steps_lib.STEP_EAGER)
+
+    def moved(before):
+        return tuple(b - a for a, b in zip(before, counters()))
+
+    runs = {"family": family}
+    for name in ("eager_a", "eager_b"):
+        state = copy_lib.deepcopy(base)
+        before = counters()
+        losses, n = counted(lambda: [steps_lib.make_train_step(augment=False)(state, b, None)
+                                     ["loss"] for b in batches])
+        runs[name] = {"losses": torch.stack(losses).cpu(), "state": _snapshot(state),
+                      "counters": moved(before), "launches": n}
+    graphed = copy_lib.deepcopy(base)
+    step = steps_lib.make_train_step(augment=False)
+    before = counters()
+    losses, n = counted(lambda: [step(graphed, b, None)["loss"] for b in batches])
+    runs["graphed"] = {"losses": torch.stack(losses).cpu(), "state": _snapshot(graphed),
+                       "counters": moved(before), "launches": n,
+                       "loss_ptrs": [x.data_ptr() for x in losses]}
+
+    nan_batch = dict(batches[0], output_img=batches[0]["output_img"].clone())
+    nan_batch["output_img"][0, 0, 0, 0] = float("nan")
+    before = counters()
+    loss = step(graphed, nan_batch, None)["loss"]
+    runs["nan"] = {"loss": float(loss), "state": _snapshot(graphed), "counters": moved(before)}
+
+    half = _graph_batches(3, GRAPH_BATCH // 2)
+    before = counters()
+    half_losses = [float(step(graphed, b, None)["loss"]) for b in half]
+    runs["second_signature"] = {"losses": half_losses, "counters": moved(before)}
+
+    eager_k3 = runs["eager_a"]["launches"]["K3"] // GRAPH_STEPS
+    before = counters()
+    names = cuda_kernel_names(lambda: step(graphed, batches[1], None))
+    runs["traced"] = {"names": names, "counters": moved(before), "eager_k3": eager_k3}
+    yield runs
+    del base, graphed, step
+    torch.cuda.empty_cache()
+
+
+def test_train_step_graph_matches_eager_steps(step_graph_runs):
+    """Five steps from one rw_t state (256² crops, batch 8): the first eager,
+    the second captured and replayed once, three replays; against five
+    eager steps from the same state, the losses, parameters, Adam's moments,
+    BN's running buffers within twice the gap of two eager runs (or 1e-6,
+    fp32 round-off, where those agree bitwise), Adam's step counts and the
+    applied count equal. Each call returns a loss tensor of its own."""
+    a, b, g = (step_graph_runs[k] for k in ("eager_a", "eager_b", "graphed"))
+    assert a["counters"] == b["counters"] == (0, 0, GRAPH_STEPS)
+    assert g["counters"] == (1, GRAPH_STEPS - 2, 1)
+    # The eager step and the capture run the wrappers; a replay does not.
+    kernel, other = _kernels(step_graph_runs["family"])
+    assert (g["launches"][kernel], g["launches"][other]) == (2, 0), g["launches"]
+    assert len(set(g["loss_ptrs"])) == GRAPH_STEPS
+    assert torch.isfinite(g["losses"]).all()
+    assert _gap([g["losses"]], [a["losses"]]) <= max(2 * _gap([b["losses"]], [a["losses"]]),
+                                                     1e-6)
+    for key in ("params", "exp_avg", "exp_avg_sq", "buffers"):
+        floats = [i for i, t in enumerate(a["state"][key]) if t.is_floating_point()]
+        pick = lambda s: [s[key][i] for i in floats]  # noqa: E731
+        eager_gap = _gap(pick(b["state"]), pick(a["state"]))
+        assert _gap(pick(g["state"]), pick(a["state"])) <= max(2 * eager_gap, 1e-6), key
+    for key in ("adam_step", "count"):
+        assert all(torch.equal(x, y) for x, y in zip(g["state"][key], a["state"][key])), key
+    assert all(torch.equal(x, y) for x, y in zip(g["state"]["buffers"], a["state"]["buffers"])
+               if not x.is_floating_point())
+
+
+def test_train_step_graph_replays_the_non_finite_guard(step_graph_runs):
+    """A replay on a batch whose target holds a NaN: a NaN loss, and the
+    parameters, Adam's moments and step counts and the applied count as
+    they were."""
+    g, nan = step_graph_runs["graphed"], step_graph_runs["nan"]
+    assert nan["counters"] == (0, 1, 0)
+    assert not np.isfinite(nan["loss"])
+    for key in ("params", "exp_avg", "exp_avg_sq", "adam_step", "count"):
+        assert all(torch.equal(x, y) for x, y in zip(nan["state"][key], g["state"][key])), key
+
+
+def test_train_step_graph_captures_a_second_signature(step_graph_runs):
+    """A batch of half the size: eager, then its own capture, then a
+    replay; finite losses."""
+    second = step_graph_runs["second_signature"]
+    assert second["counters"] == (1, 1, 1)
+    assert np.isfinite(second["losses"]).all()
+
+
+def test_one_replay_holds_the_steps_hand_written_kernels(step_graph_runs):
+    """The kernels one replayed step runs (torch.profiler): K1's forward and
+    its backward kernel once each for the polynomial model, K2 once for the
+    curve model, and as many K3 launches as an eager step makes."""
+    traced = step_graph_runs["traced"]
+    names = traced["names"]
+    assert traced["counters"] == (0, 1, 0)
+
+    def count(part):
+        return sum(part in name for name in names)
+
+    if step_graph_runs["family"] == "trispace":
+        assert (count(K1_NAME), count("trispace_backward_kernel"), count(K2_NAME)) == (1, 1, 0)
+    else:
+        assert (count(K1_NAME), count("trispace_backward_kernel"), count(K2_NAME)) == (0, 0, 1)
+    assert traced["eager_k3"] > 0
+    assert count("tie_clip_grad") == traced["eager_k3"], sorted(set(names))
 
 
 def test_plain_forms_agree_with_k1(cuda):

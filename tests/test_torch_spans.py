@@ -21,7 +21,8 @@ from curl_tpu_torch.utils import profiling
 PACKAGE = Path(__file__).resolve().parents[1] / "curl_tpu_torch"
 SPANS = {"curl_tpu_torch::engine.batch", "curl_tpu_torch::engine.upload",
          "curl_tpu_torch::model.predict", "curl_tpu_torch::model.replay",
-         "curl_tpu_torch::k1.backward"}
+         "curl_tpu_torch::k1.backward", "curl_tpu_torch::train.step",
+         "curl_tpu_torch::train.replay"}
 
 
 def _defined_names() -> set:
@@ -129,7 +130,12 @@ def test_a_train_step_records_model_predict(kind):
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         loss = step(state, batch, torch.Generator())["loss"]
     assert torch.isfinite(loss)
-    assert [e.name for e in _events(prof)] == ["curl_tpu_torch::model.predict"]
+    # The CPU steps eagerly: the step's span holds the prediction's, and no
+    # replay.
+    step_span, predict = _events(prof)
+    assert (step_span.name, predict.name) == ("curl_tpu_torch::train.step",
+                                              "curl_tpu_torch::model.predict")
+    assert predict.cpu_parent is step_span
 
 
 def _k1_on_the_cpu(img, r, l, h, row0, total_h, total_w, spatial, composite):
